@@ -1,11 +1,12 @@
-"""Model configs for the port: the fields the encoder stack reads.
+"""Model configs for the port (mirrors ``repro/configs/base.py``).
 
-Mirrors ``repro/configs/base.py``. A stack is described as
-``prefix ++ (period * n_periods) ++ suffix`` of ``LayerSpec`` entries;
-the port runs it as a plain loop over ``layers``. Only what the
-marketplace encoders and the scorer use is supported in this slice
-(attention mixers, dense gelu FFN, layernorm, absolute or no positions);
-other values are refused rather than silently mis-run.
+A stack is described as ``prefix ++ (period * n_periods) ++ suffix`` of
+``LayerSpec`` entries; the port runs it as a plain loop over ``layers``.
+Supported: attention mixers (full or sliding window), dense FFNs with
+gelu / geglu / swiglu, layernorm or rmsnorm, absolute, rope or no
+positions, float32 or bfloat16. Mamba mixers, MoE FFNs and mrope are
+refused with an error until their slice is ported, rather than silently
+mis-run; the config has no MoE, SSM or MLA fields to set.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Tuple
 
 _MIXERS = ("attn", "attn_sliding")
 _FFNS = ("dense", "none")
+_LATER = "is not ported yet (MoE, SSM, MLA and mrope come with kernels 4-5)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,11 +27,11 @@ class LayerSpec:
 
     def __post_init__(self):
         if self.mixer not in _MIXERS:
-            raise ValueError(f"mixer {self.mixer!r} is not ported; "
-                             f"expected one of {_MIXERS}")
+            raise ValueError(f"mixer {self.mixer!r} {_LATER}; expected one "
+                             f"of {_MIXERS}")
         if self.ffn not in _FFNS:
-            raise ValueError(f"ffn {self.ffn!r} is not ported; expected "
-                             f"one of {_FFNS}")
+            raise ValueError(f"ffn {self.ffn!r} {_LATER}; expected one of "
+                             f"{_FFNS}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,27 +52,31 @@ class ModelConfig:
     n_periods: int = 0
     suffix: Tuple[LayerSpec, ...] = ()
 
-    pos: str = "abs"             # "abs" | "none"
+    pos: str = "rope"            # "rope" | "abs" | "none"
+    rope_theta: float = 10_000.0
     window: int = 0              # sliding-window size for attn_sliding
-    causal: bool = True          # False => encoder-only
-    ffn_act: str = "gelu"
-    norm: str = "layernorm"
+    causal: bool = True          # False => encoder-only (no decode)
+    ffn_act: str = "swiglu"      # "swiglu" | "gelu" | "geglu"
+    norm: str = "rmsnorm"        # "rmsnorm" | "layernorm"
     tie_embeddings: bool = False
     max_seq: int = 131_072
-    dtype: str = "float32"
+    dtype: str = "bfloat16"      # compute dtype: "float32" | "bfloat16"
+    # citation for the config numbers
+    source: str = ""
 
     def __post_init__(self):
-        got = len(self.prefix) + len(self.period) * self.n_periods + len(self.suffix)
+        got = len(self.layers)
         if got != self.n_layers:
             raise ValueError(f"{self.name}: layer pattern covers {got} "
                              f"layers, expected {self.n_layers}")
-        for field, value, ok in (("pos", self.pos, ("abs", "none")),
-                                 ("ffn_act", self.ffn_act, ("gelu",)),
-                                 ("norm", self.norm, ("layernorm",)),
-                                 ("dtype", self.dtype, ("float32",))):
+        for field, value, ok in (
+                ("pos", self.pos, ("rope", "abs", "none")),
+                ("ffn_act", self.ffn_act, ("gelu", "geglu", "swiglu")),
+                ("norm", self.norm, ("layernorm", "rmsnorm")),
+                ("dtype", self.dtype, ("float32", "bfloat16"))):
             if value not in ok:
-                raise ValueError(f"{field}={value!r} is not ported; "
-                                 f"expected one of {ok}")
+                raise ValueError(f"{field}={value!r} is not ported; expected "
+                                 f"one of {ok}")
         if self.n_kv_heads <= 0 or self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads={self.n_heads} must be a positive "
                              f"multiple of n_kv_heads={self.n_kv_heads}")
@@ -83,3 +89,50 @@ class ModelConfig:
     @property
     def q_dim(self) -> int:
         return self.n_heads * self.head_dim
+
+    @property
+    def decode_supported(self) -> bool:
+        return self.causal
+
+    def reduced(self) -> "ModelConfig":
+        """The reference's 2-layer CPU variant of the same family
+        (``repro/configs/base.py::reduced``): d_model <= 256, head_dim
+        <= 64, <= 4 heads, d_ff <= 512, vocab <= 1024, window <= 64,
+        max_seq 512, float32. The 2 layers are the first period's head
+        (so Gemma-3 keeps two sliding layers), else the prefix's."""
+        d_model = min(self.d_model, 256)
+        head_dim = min(self.head_dim, 64) if self.head_dim else 0
+        n_heads = min(self.n_heads, 4) if self.n_heads else 0
+        n_kv = (min(self.n_kv_heads, max(1, n_heads // 2))
+                if self.n_kv_heads else 0)
+        if self.n_kv_heads == self.n_heads:  # keep MHA archs MHA
+            n_kv = n_heads
+        if self.period:
+            period = self.period[:2] if len(self.period) >= 2 else self.period
+            n_periods = 2 // len(period)
+            rem = 2 - n_periods * len(period)
+            prefix = self.prefix[:rem]
+            if len(prefix) < rem:  # pad from period
+                prefix = (self.period[0],) * rem
+            suffix = ()
+        else:
+            prefix, period, n_periods, suffix = self.prefix[:2], (), 0, ()
+        n_layers = len(prefix) + len(period) * n_periods + len(suffix)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=n_layers,
+            d_model=d_model,
+            d_ff=min(self.d_ff, 512),
+            vocab=min(self.vocab, 1024),
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=head_dim,
+            prefix=prefix,
+            period=period,
+            n_periods=n_periods,
+            suffix=suffix,
+            window=min(self.window, 64) if self.window else 0,
+            max_seq=512,
+            dtype="float32",
+        )

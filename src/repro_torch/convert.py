@@ -4,7 +4,12 @@
 numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``) and returns the
 port's layout: the scanned ``period`` stack (leading axis ``n_periods``)
 is unstacked into one dict per layer, after the prefix blocks and before
-the suffix blocks, in ``cfg.layers`` order. It imports no jax.
+the suffix blocks, in ``cfg.layers`` order. Leaves are read as fp32
+masters (the reference keeps fp32 params and casts at each use) and
+handed out in the compute dtype by ``transformer.cast_params``, which
+gives the same bf16 values the reference's casts do. Whatever leaves the
+tree has (gated MLPs' ``gate``, bias-less norms, no ``embed.pos`` or
+``embed.unembed``) are carried over as they are. It imports no jax.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import cast_params
 
 
 def _tree_map(fn, tree):
@@ -51,8 +57,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> dict:
     out = {k: v for k, v in tree.items()
            if k not in ("prefix", "period", "suffix")}
     out["layers"] = layers
-    return _tree_map(lambda a: torch.from_numpy(
+    master = _tree_map(lambda a: torch.from_numpy(
         np.array(a, dtype=np.float32)).to(dev), out)
+    return cast_params(master, cfg)
 
 
 def params_to(params: dict, device) -> dict:

@@ -13,7 +13,7 @@ import math
 import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128          # the CUDA kernel's limit
+MAX_HEAD_DIM = 256          # the CUDA kernel's limit
 
 
 def _check(q, k, v):
@@ -81,7 +81,7 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0):
 
     Any S (the kernel masks the ragged tail); GQA maps query head h to
     KV head h // (H // KVH). CUDA tensors must be contiguous, float32 or
-    bfloat16, with hd <= 128."""
+    bfloat16, with hd <= 256."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, causal=causal, window=window)

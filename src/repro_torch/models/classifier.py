@@ -53,7 +53,7 @@ def as_tokens(tokens, device: torch.device):
 def encode(params, tokens, cfg: ModelConfig):
     """tokens (B, L) -> final-normed hidden states (B, L, d)."""
     toks = as_tokens(tokens, params_device(params))
-    x = _apply_stack(params, _embed_inputs(params, toks, cfg), cfg=cfg)
+    x, _ = _apply_stack(params, _embed_inputs(params, toks, cfg), cfg=cfg)
     return apply_norm(params["final_norm"], x, cfg)
 
 

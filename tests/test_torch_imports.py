@@ -78,10 +78,18 @@ def _entry_points():
     from repro_torch.serving.builder import assemble_pipeline
     from repro_torch.serving.pipeline import ServingPipeline, TierSpec
 
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.serving.engine import EnginePool, GenerationEngine
+
     cfg = NM.tier_config("GPT-J")
+    gemma = ARCHS["gemma3-1b"].reduced()
     tier = CascadeTier("t", lambda q: (np.zeros(len(q), int),
                                        np.zeros(len(q))))
     return {
+        "GenerationEngine": lambda: GenerationEngine(
+            gemma, init_params(gemma, device="cpu")),
+        "EnginePool.get": lambda: EnginePool().get(
+            gemma, init_params(gemma, device="cpu")),
         "init_params": lambda: init_params(cfg),
         "init_classifier": lambda: init_classifier(SCORER_CFG, 1),
         "init_marketplace": lambda: NM.init_marketplace(
@@ -100,7 +108,8 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["init_params", "init_classifier",
+@pytest.mark.parametrize("name", ["GenerationEngine", "EnginePool.get",
+                                  "init_params", "init_classifier",
                                   "init_marketplace", "params_from_numpy",
                                   "assemble_pipeline", "ServingPipeline",
                                   "execute_cascade"])
