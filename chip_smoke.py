@@ -36,7 +36,29 @@ exits non-zero:
              twice, through both attention kernels, which are then held
              against their plain versions at the shapes the tier gave
              them (its prefill buckets, its cache lengths);
-  [kernels]  one line over the three kernels, then the kernels' JSON
+  [gmm]      the grouped expert matmul against its plain version over a
+             sweep (fp32 and bf16, ragged C / K / F, C from 1 to 320) and
+             at Granite-MoE's prefill and decode shapes, timed beside the
+             plain version and ``torch.bmm``;
+  [ssd]      the SSD chunked scan against its plain version, y and final
+             state (fp32 and bf16, S a multiple of the chunk and ragged),
+             and at Mamba2-1.3B's shape, timed beside the plain version;
+  [generate-moe], [generate-ssm]
+             Granite-3.0-1B-A400M and Mamba2-1.3B at full width and depth
+             from seeded weights, as [generate] (a) and (b) run Gemma: fp32
+             greedy tokens on the card against the CPU (8 x 13 and 1 x 300
+             prompts; a row may differ only on a CPU near-tie, a top-2
+             logit margin or, for the MoE, a router top-k gap), bf16 times
+             and launches of the timed run (every MoE layer's 3 gmm per
+             forward, every Mamba layer's ssd per prefill), bf16 logits
+             teacher-forced against fp32 (the MoE with the fp32 expert
+             choices pinned), a drift held to the reference arithmetic's
+             own: the plain path on the CPU, same weights and tokens;
+  [serve-moe-ssm]
+             a cascade of an encoder tier, a Mamba2 generation tier and a
+             Granite-MoE generation tier serving 256 requests twice,
+             through all five kernels;
+  [kernels]  one line over the five kernels, then the kernels' JSON
              record and the result line.
 
 It exits non-zero without a result when no CUDA device is present.
@@ -78,6 +100,26 @@ GEN_FRAGILE = 1e-3           # CPU top-2 margin under which a row may flip
 BF16_LOGIT_TOL = 0.2
 N_GEN_REQUESTS = 256
 GEN_SERVE_NEW = 4            # tokens a serve's generation tier decodes
+GEN_TIMING_REPS = 3          # timed generates per batch in (b), + 1 warm-up
+# grouped matmul and SSD scan ([gmm], [ssd]): outputs are sums of up to
+# 1024 products of order-1 inputs, so an absolute bound does not scale;
+# fp32 is held to FP32_REL x max|plain| (two fp32 summation orders differ
+# by ~sqrt(K) 2^-24 ~ 2e-6 of the largest output at K = 1024), bf16 to
+# BF16_REL x max|plain| (both sides round an fp32 sum once)
+FP32_REL = 1e-5
+# MoE and SSM generation ([generate-moe], [generate-ssm])
+# a CPU router top-k gap (probability of the k-th minus the (k+1)-th
+# expert) under which card and CPU may choose different experts: fp32 on
+# the two differs by ~1e-8 in a router probability after 24 layers
+ROUTER_FRAGILE = 1e-6
+# largest |bf16 - fp32| logit, teacher-forced (the MoE with the fp32
+# expert choices pinned), on the card, at most REF_DRIFT_RATIO x the same
+# drift of the plain path on the CPU, from the same weights and tokens:
+# tests/test_torch_generation.py holds that path's bf16 to the JAX
+# package's, so its drift is the reference's own. The card sums in other
+# orders, a second draw of the same rounding noise; the largest of ~10^7
+# logit differences varies between such draws by well under 1.5x
+REF_DRIFT_RATIO = 1.5
 
 
 def _time_ms(fn, reps: int = 20, rounds: int = 7) -> float:
@@ -116,6 +158,29 @@ def _agree(out, ref, what: str) -> float:
     return err
 
 
+def _agree_rel(out, ref, what: str) -> float:
+    """Max abs error of a kernel's output against its plain version,
+    raising past FP32_REL (fp32) or BF16_REL (bf16) x max|plain|."""
+    import torch
+    torch.cuda.synchronize()
+    ref = ref.float()
+    err = (out.float() - ref).abs().max().item()
+    rel = BF16_REL if out.dtype == torch.bfloat16 else FP32_REL
+    tol = rel * ref.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"max abs err {err:.3e} > {tol:.3e}")
+    return err
+
+
+def _bound(nbytes, flops, dtype_name):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    HBM's rate and the operations over the peak rate for the type."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[dtype_name] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _tol_text() -> str:
     return (f"fp32 <= {FLOAT_TOL['float32']}, bf16 <= min("
             f"{FLOAT_TOL['bfloat16']}, {BF16_REL} x max|plain|)")
@@ -131,7 +196,7 @@ def phase_device():
     print(f"[device] torch: {name}, {torch.cuda.device_count()} device(s), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
-    return name
+    return name, smi
 
 
 def phase_build():
@@ -344,9 +409,6 @@ def phase_serve():
     from repro_torch.core import neural_market as NM
     from repro_torch.core import scorer as SC
     from repro_torch.core.prompt import PromptSpec
-    from repro_torch.kernels.cascade_compact.ops import compact
-    from repro_torch.kernels.decode_attention.ops import gqa_decode
-    from repro_torch.kernels.flash_attention.ops import mha
     from repro_torch.models.classifier import init_classifier
     from repro_torch.serving.builder import assemble_pipeline
 
@@ -367,18 +429,7 @@ def phase_serve():
           f"{time.perf_counter() - t:.3f}s wall")
     pipe = assemble_pipeline(apis, sp, THRESHOLDS, prompts, device="cuda",
                              compact="device")
-    mha.launches = gqa_decode.launches = compact.launches = 0
-    passes = []
-    for _ in range(2):
-        t = time.perf_counter()
-        res = pipe.serve(tokens)
-        torch.cuda.synchronize()
-        passes.append((res, time.perf_counter() - t))
-    launches = {"flash_attention": mha.launches,
-                "cascade_compact": compact.launches,
-                "decode_attention": gqa_decode.launches}
-    for i, (res, wall) in enumerate(passes):
-        print(f"[serve] pass {i + 1} ({wall:.3f}s wall): {res.summary()}")
+    passes, launches = _serve_twice(pipe, tokens, "[serve]")
     print(f"  launches over both passes: {launches} (the encoders decode "
           f"nothing)")
     if min(launches["flash_attention"], launches["cascade_compact"]) <= 0:
@@ -509,14 +560,21 @@ def _decode_row(b, s, lengths, dtype_name="bfloat16"):
     return row
 
 
-def _greedy_trace(params, cfg, prompts, n_new):
+def _greedy_trace(params, cfg, prompts, n_new, s_pad=None):
     """Greedy tokens (B, n_new) and each row's smallest top-2 logit margin
-    over its steps, from an unbucketed prefill + decode chain."""
+    over its steps, from a prefill + decode chain with no batch bucket;
+    the prompt is right-padded with token 0 to ``s_pad`` (the engine's
+    prompt bucket) and read at its true last position, as the engine
+    does."""
+    import numpy as np
     import torch
     from repro_torch.models import transformer as T
     s = prompts.shape[1]
-    logits, cache = T.prefill(params, {"tokens": prompts}, cfg,
-                              max_len=s + n_new)
+    s_pad = s_pad or s
+    toks = np.zeros((len(prompts), s_pad), prompts.dtype)
+    toks[:, :s] = prompts
+    logits, cache = T.prefill(params, {"tokens": toks}, cfg,
+                              max_len=s_pad + n_new, last_index=s - 1)
     toks, margins = [], []
     for i in range(n_new):
         top2 = logits[:, -1].topk(2, dim=-1).values
@@ -545,7 +603,7 @@ def _forced_logits(params, cfg, prompts, forced):
     return torch.stack(out, 1)
 
 
-def _gen_times(eng, prompts, reps: int = 3):
+def _gen_times(eng, prompts, reps: int = GEN_TIMING_REPS):
     """Median ms of one prefill (``prefill_async`` to the card's end) and
     per decoded token (``decode_from``, which returns host tokens)."""
     import torch
@@ -564,34 +622,14 @@ def _gen_times(eng, prompts, reps: int = 3):
     return statistics.median(pre), statistics.median(dec)
 
 
-def phase_generate():
-    """Gemma-3-1B at full width on the card: (a) fp32 greedy tokens equal
-    the CPU's, (b) bf16 times and bf16-vs-fp32 logits, (c) a two-tier
-    cascade with a generation tier, served twice. Returns the launch
-    counts of (c) and the kernels' times at its shapes."""
+def _init_model(cfg, tag):
+    """Seeded fp32 masters on the CPU for ``cfg`` at full width and depth,
+    their copy on the card and its ``cfg.dtype`` cast. Returns (cfg32,
+    master, p32, p16)."""
     import dataclasses
-    import functools
-    import numpy as np
     import torch
-    from repro_torch.configs.registry import ARCHS
     from repro_torch.convert import params_to
-    from repro_torch.core import neural_market as NM
-    from repro_torch.core import scorer as SC
-    from repro_torch.core.approx import CompletionCache, embed_queries
-    from repro_torch.core.cost import TABLE1
-    from repro_torch.core.prompt import PromptSpec
-    from repro_torch.data import synthetic
-    from repro_torch.kernels.cascade_compact.ops import compact
-    from repro_torch.kernels.decode_attention.ops import gqa_decode
-    from repro_torch.kernels.flash_attention.ops import mha
     from repro_torch.models import transformer as T
-    from repro_torch.models.classifier import init_classifier
-    from repro_torch.serving.builder import FULL_PROMPT_TOKENS
-    from repro_torch.serving.engine import (EnginePool, GenerationEngine,
-                                            bucket_size, generation_tier)
-    from repro_torch.serving.pipeline import ServingPipeline, TierSpec
-
-    cfg = ARCHS["gemma3-1b"]                         # bf16, the config's own
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     t = time.perf_counter()
     master = T.init_params(cfg32, seed=SEED, device="cpu")
@@ -599,105 +637,250 @@ def phase_generate():
     p32 = params_to(master, "cuda")
     p16 = T.cast_params(p32, cfg)
     torch.cuda.synchronize()
-    print(f"[generate] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
           f"vocab {cfg.vocab}, {n_params / 1e9:.3f} B params from seed "
           f"{SEED} ({time.perf_counter() - t:.1f}s to draw and copy)")
-    rng = np.random.default_rng(SEED + 13)
-    prompts = {"8x13": rng.integers(1, cfg.vocab, (8, 13)).astype(np.int32),
-               "1x600": rng.integers(1, cfg.vocab, (1, 600)).astype(np.int32)}
+    return cfg32, master, p32, p16
 
-    # (a) fp32 on the card == fp32 on the CPU, up to near-tie rows
-    eng32 = GenerationEngine(cfg32, p32, device="cuda")
+
+def _fp32_vs_cpu(eng32, master, cfg32, prompts, max_excused=1):
+    """(a): fp32 greedy generation on the card equals the same weights on
+    the CPU, except rows the CPU run marks fragile: a top-2 logit margin
+    under GEN_FRAGILE or, in MoE layers, a router top-k gap under
+    ROUTER_FRAGILE on a real token (``_route_recorder``). The CPU chain
+    takes the exact prompt, so the card's bucketing (right padding) is
+    held to it, except where an attention + MoE layer's capacity follows
+    the padded length: there the CPU prompt is padded as the engine's."""
+    import numpy as np
+    from repro_torch.serving.engine import bucket_size
+    has_moe = any(sp.ffn == "moe" for sp in cfg32.layers)
+    pad_ref = any(sp.ffn == "moe" and sp.mixer.startswith("attn")
+                  for sp in cfg32.layers)
     n_rows = n_fragile = 0
     excused = []
     for name, pr in prompts.items():
         t = time.perf_counter()
         card = eng32.generate(pr, GEN_NEW)
-        ref, margin = _greedy_trace(master, cfg32, pr, GEN_NEW)
+        s = pr.shape[1]
+        s_b = bucket_size(s, eng32.seq_floor)
+        s_eng = s_b if eng32._seq_paddable(s_b) else s
+        s_pad = s_eng if pad_ref else s
+        with _route_recorder() as rec:
+            ref, margin = _greedy_trace(master, cfg32, pr, GEN_NEW, s_pad)
+        gap = _router_gaps(rec.calls, s, len(pr), cfg32)
         differ = (card != ref).any(1)
-        fragile = margin < GEN_FRAGILE
+        fragile = (margin < GEN_FRAGILE) | (gap < ROUTER_FRAGILE)
         if (differ & ~fragile).any():
             raise AssertionError(
                 f"fp32 generation on the card differs from the CPU on "
                 f"{int((differ & ~fragile).sum())} rows of {name} with every "
-                f"CPU top-2 margin >= {GEN_FRAGILE}")
-        excused += [f"{name}[{i}]" for i in np.flatnonzero(differ)]
+                f"CPU top-2 margin >= {GEN_FRAGILE} and router gap >= "
+                f"{ROUTER_FRAGILE}")
+        excused += [f"{name}[{i}] (margin {margin[i]:.1e}, router gap "
+                    f"{gap[i]:.1e})" for i in np.flatnonzero(differ)]
         n_rows += len(pr)
         n_fragile += int(fragile.sum())
-        print(f"  (a) fp32 {name}: {int((~differ).sum())}/{len(pr)} rows "
-              f"identical to the CPU over {GEN_NEW} tokens; smallest CPU "
-              f"top-2 margin {margin.min():.2e} "
-              f"({time.perf_counter() - t:.1f}s with the CPU reference)")
-    print(f"  (a) rows that differ on a CPU margin < {GEN_FRAGILE}: "
-          f"{excused or 'none'} ({n_fragile} fragile rows of {n_rows})")
-    if len(excused) > 1:
+        routing = (f"; smallest router top-k gap {gap.min():.2e}"
+                   if has_moe else "")
+        print(f"  (a) fp32 {name} (card prompt padded to {s_eng}, CPU to "
+              f"{s_pad}): "
+              f"{int((~differ).sum())}/{len(pr)} rows identical to the CPU "
+              f"over {GEN_NEW} tokens; smallest CPU top-2 margin "
+              f"{margin.min():.2e}{routing} ({time.perf_counter() - t:.1f}s "
+              f"with the CPU reference)")
+    print(f"  (a) rows that differ on a near-tie: {excused or 'none'} "
+          f"({n_fragile} fragile rows of {n_rows})")
+    if len(excused) > max_excused:
         raise AssertionError(f"{len(excused)} of {n_rows} rows differ from "
-                             f"the CPU (near-ties allow 1)")
+                             f"the CPU (near-ties allow {max_excused})")
+
+
+class _route_recorder:
+    """Context: records (probs, e_idx) of every MoE router call
+    (``models.moe.router``); ``pin`` replays a recorded run's expert
+    choices, in call order, with this run's own probabilities as weights
+    (renormalised), and counts the tokens whose own choice differed."""
+
+    def __init__(self, pin=None):
+        self.calls, self.pin, self.flipped, self.tokens = [], pin, 0, 0
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self._orig = orig = M.router
+
+        def router(p, x, cfg):
+            probs, w, e_idx = orig(p, x, cfg)
+            if self.pin is not None:
+                forced = self.pin[len(self.calls)][1].to(e_idx.device)
+                own = e_idx.sort(-1).values
+                self.flipped += int((own != forced.sort(-1).values)
+                                    .any(-1).sum())
+                self.tokens += own.shape[0] * own.shape[1]
+                e_idx = forced
+                w = probs.gather(-1, e_idx)
+                w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+            self.calls.append((probs, e_idx))
+            return probs, w, e_idx
+
+        M.router = router
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+        M.router = self._orig
+
+
+def _router_gaps(calls, s, b, cfg):
+    """Per row, the smallest gap between the k-th and (k+1)-th router
+    probability over the real tokens (the first ``s`` of a prefill call,
+    every decode token) of every recorded router call; inf without MoE."""
+    import numpy as np
+    import torch
+    gap = np.full(b, np.inf)
+    for probs, _ in calls:
+        k = cfg.moe.top_k
+        top = torch.topk(probs[:b, :s].float(), k + 1, dim=-1).values
+        g = (top[..., k - 1] - top[..., k]).amin(1).cpu().numpy()
+        gap = np.minimum(gap, g)
+    return gap
+
+
+def _pinned_logits(p32, p16, cfg32, cfg, prompts, forced):
+    """fp32 and bf16 logits teacher-forced on ``forced``, the bf16 run
+    taking the fp32 run's expert choices; and the bf16 run's recorder."""
+    with _route_recorder() as rec32:
+        l32 = _forced_logits(p32, cfg32, prompts, forced)
+    with _route_recorder(pin=rec32.calls) as rec:
+        l16 = _forced_logits(p16, cfg, prompts, forced)
+    return l32, l16, rec
+
+
+def _bf16_checks(eng16, p16, p32, cfg, cfg32, prompts, timed, tol=None,
+                 master=None):
+    """(b): ms per prefill and per decoded token of the bf16 engine at
+    each batch of ``timed``, with every kernel counter zeroed before and
+    read after (the main path's launches); then bf16 logits,
+    teacher-forced on the bf16 engine's own tokens, against fp32 within
+    ``tol`` or, given the fp32 ``master`` weights on the CPU, within
+    REF_DRIFT_RATIO x the same drift of the plain path there (the
+    reference's arithmetic) on the same tokens. In MoE layers the bf16
+    run takes the fp32 run's expert choices (``_route_recorder(pin=...)``):
+    a near-tie that bf16 rounding flips swaps whole experts, which no
+    rounding bound covers; the flipped choices are counted. Returns
+    (times, launches)."""
+    import torch
+    from repro_torch.models import transformer as T
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    times = {}
+    for b, pr in timed.items():
+        times[b] = _gen_times(eng16, pr)
+        print(f"  (b) bf16 B={b} prompt {pr.shape[1]}, {GEN_NEW} new: "
+              f"{times[b][0]:.2f} ms per prefill, {times[b][1]:.2f} ms per "
+              f"decoded token")
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"  (b) launches over the timed generation: {launches}")
+    has_moe = any(sp.ffn == "moe" for sp in cfg.layers)
+    m16 = None if master is None else T.cast_params(master, cfg)
+    worst, over = 0.0, []
+    for name, pr in prompts.items():
+        out16 = eng16.generate(pr, GEN_NEW)
+        forced = torch.from_numpy(out16).to("cuda")
+        l32, l16, rec = _pinned_logits(p32, p16, cfg32, cfg, pr, forced)
+        diff = (l16 - l32).abs().max().item()
+        agree = (l16.argmax(-1) == l32.argmax(-1)).float().mean().item()
+        own = (l16.argmax(-1).cpu().numpy() == out16).mean()
+        worst = max(worst, diff)
+        pinned = (f"; the fp32 expert choices pinned, bf16's own differed "
+                  f"on {rec.flipped} of {rec.tokens} token-layers"
+                  if has_moe else "")
+        print(f"  (b) bf16 {name} teacher-forced through fp32: max |logit "
+              f"diff| {diff:.4f} (logit std {l32.std().item():.3f}); argmax "
+              f"agrees with fp32 on {agree:.3f} of steps, with the bf16 "
+              f"engine's own tokens on {own:.3f}{pinned}")
+        if m16 is not None:
+            t = time.perf_counter()
+            c32, c16, _ = _pinned_logits(master, m16, cfg32, cfg, pr,
+                                         forced.cpu())
+            ref = (c16 - c32).abs().max().item()
+            bound = REF_DRIFT_RATIO * ref
+            print(f"  (b) bf16 {name}, the plain path on the CPU (the "
+                  f"reference's arithmetic), same tokens: max |logit diff| "
+                  f"{ref:.4f}; card / CPU drift {diff / ref:.3f} (bound "
+                  f"{REF_DRIFT_RATIO}); card vs CPU: bf16 "
+                  f"{(l16.cpu() - c16).abs().max().item():.4f}, fp32 "
+                  f"{(l32.cpu() - c32).abs().max().item():.2e} "
+                  f"({time.perf_counter() - t:.1f}s on the CPU)")
+            if not diff <= bound:
+                over.append(f"{name}: {diff:.4f} > {REF_DRIFT_RATIO} x "
+                            f"{ref:.4f}")
+            del c16, c32
+        del l16, l32
+    if over:
+        raise AssertionError(f"bf16 logits drift from fp32 on the card more "
+                             f"than the reference's arithmetic: {over}")
+    if tol is not None and not worst <= tol:
+        raise AssertionError(f"bf16 logits differ from fp32 by {worst:.4f} > "
+                             f"{tol}")
+    return times, launches
+
+
+def _counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.cascade_compact.ops import compact
+    from repro_torch.kernels.decode_attention.ops import gqa_decode
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.moe_gmm.ops import gmm
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    return {"flash_attention": mha, "cascade_compact": compact,
+            "decode_attention": gqa_decode, "moe_gmm": gmm,
+            "ssd_scan": ssd_scan}
+
+
+def phase_generate():
+    """Gemma-3-1B at full width on the card: (a) fp32 greedy tokens equal
+    the CPU's, (b) bf16 times and bf16-vs-fp32 logits, (c) a two-tier
+    cascade with a generation tier, served twice. Returns the launch
+    counts of (c) and the kernels' times at its shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.cost import TABLE1
+    from repro_torch.data import synthetic
+    from repro_torch.serving.engine import (EnginePool, GenerationEngine,
+                                            bucket_size, generation_tier)
+
+    cfg = ARCHS["gemma3-1b"]                         # bf16, the config's own
+    cfg32, master, p32, p16 = _init_model(cfg, "generate")
+    rng = np.random.default_rng(SEED + 13)
+    prompts = {"8x13": rng.integers(1, cfg.vocab, (8, 13)).astype(np.int32),
+               "1x600": rng.integers(1, cfg.vocab, (1, 600)).astype(np.int32)}
+
+    # (a) fp32 on the card == fp32 on the CPU, up to near-tie rows
+    _fp32_vs_cpu(GenerationEngine(cfg32, p32, device="cuda"), master, cfg32,
+                 prompts)
     del master
 
     # (b) bf16: times, and logits teacher-forced against fp32
     eng16 = GenerationEngine(cfg, p16, device="cuda")
     timed = {8: prompts["8x13"],
              64: rng.integers(1, cfg.vocab, (64, 13)).astype(np.int32)}
-    for b, pr in timed.items():
-        pre_ms, tok_ms = _gen_times(eng16, pr)
-        print(f"  (b) bf16 B={b} prompt 13, {GEN_NEW} new: {pre_ms:.2f} ms "
-              f"per prefill, {tok_ms:.2f} ms per decoded token")
-    worst = 0.0
-    for name, pr in prompts.items():
-        out16 = eng16.generate(pr, GEN_NEW)
-        forced = torch.from_numpy(out16).to("cuda")
-        l16 = _forced_logits(p16, cfg, pr, forced)
-        l32 = _forced_logits(p32, cfg32, pr, forced)
-        diff = (l16 - l32).abs().max().item()
-        agree = (l16.argmax(-1) == l32.argmax(-1)).float().mean().item()
-        own = (l16.argmax(-1).cpu().numpy() == out16).mean()
-        worst = max(worst, diff)
-        print(f"  (b) bf16 {name} teacher-forced through fp32: max |logit "
-              f"diff| {diff:.4f} (logit std {l32.std().item():.3f}); argmax "
-              f"agrees with fp32 on {agree:.3f} of steps, with the bf16 "
-              f"engine's own tokens on {own:.3f}")
-        del l16, l32
-    if not worst <= BF16_LOGIT_TOL:
-        raise AssertionError(f"bf16 logits differ from fp32 by {worst:.4f} > "
-                             f"{BF16_LOGIT_TOL}")
-    del eng32, p32
+    _bf16_checks(eng16, p16, p32, cfg, cfg32, prompts, timed, BF16_LOGIT_TOL)
+    del p32
     torch.cuda.empty_cache()
 
     # (c) serve: an encoder tier, then a Gemma generation tier
     n_classes = synthetic.N_CLASSES["headlines"]
-    api = NM.init_marketplace("headlines", tiers=NM.tier_subset(["GPT-J"]),
-                              seed=SEED, device="cuda")[0]
-    sp = init_classifier(SC.SCORER_CFG, 1, seed=SEED + 100, device="cuda")
     pool = EnginePool(max_new_tokens=GEN_SERVE_NEW)
     top_price = TABLE1["GPT-4"]
     gen = generation_tier(cfg.name, pool.get(cfg, p16, device="cuda"),
                           top_price,
                           decode_answer=lambda g: g[:, 0] % n_classes,
                           n_new=GEN_SERVE_NEW)
-    pipe = ServingPipeline(
-        tiers=[TierSpec(api.name, api.answer, api.price,
-                        prompt=PromptSpec((0, 1, 2), 110, 140)),
-               TierSpec(gen.name, gen.answer, top_price, n_out=GEN_SERVE_NEW)],
-        thresholds=(0.5,), scorer=lambda toks, ans: SC.score(sp, toks, ans),
-        cache=CompletionCache(capacity=1024, threshold=0.995),
-        embed=functools.partial(embed_queries, sp, cfg=SC.SCORER_CFG),
-        full_prompt_tokens=FULL_PROMPT_TOKENS, pad_token=synthetic.PAD,
-        baseline_price=top_price, compact="device", device="cuda")
+    pipe = _cascade_pipeline([(gen, top_price)])
     tokens = _requests(N_GEN_REQUESTS, SEED + 17)
-    mha.launches = gqa_decode.launches = compact.launches = 0
-    passes = []
-    for _ in range(2):
-        t = time.perf_counter()
-        res = pipe.serve(tokens)
-        torch.cuda.synchronize()
-        passes.append((res, time.perf_counter() - t))
-    launches = {"flash_attention": mha.launches,
-                "decode_attention": gqa_decode.launches,
-                "cascade_compact": compact.launches}
-    for i, (res, wall) in enumerate(passes):
-        print(f"[generate] (c) pass {i + 1} ({wall:.3f}s wall): "
-              f"{res.summary()}")
+    passes, launches = _serve_twice(pipe, tokens, "[generate] (c)")
     first, second = passes[0][0], passes[1][0]
     n_gen = first.tier_counts[1]
     chunks = [min(pipe.batch_size, n_gen - i)
@@ -743,6 +926,294 @@ def phase_generate():
     return launches, decode_rows, flash_rows
 
 
+def _cascade_pipeline(gens):
+    """The generation serve's pipeline: the GPT-J encoder tier (prompt
+    adapted) from seeded weights, then the generation tiers ``gens``
+    [(Tier, ApiCost)], each scored against a 0.5 threshold by the seeded
+    scorer, behind the completion cache, with on-device compaction."""
+    import functools
+    from repro_torch.core import neural_market as NM
+    from repro_torch.core import scorer as SC
+    from repro_torch.core.approx import CompletionCache, embed_queries
+    from repro_torch.core.prompt import PromptSpec
+    from repro_torch.data import synthetic
+    from repro_torch.models.classifier import init_classifier
+    from repro_torch.serving.builder import FULL_PROMPT_TOKENS
+    from repro_torch.serving.pipeline import ServingPipeline, TierSpec
+    api = NM.init_marketplace("headlines", tiers=NM.tier_subset(["GPT-J"]),
+                              seed=SEED, device="cuda")[0]
+    sp = init_classifier(SC.SCORER_CFG, 1, seed=SEED + 100, device="cuda")
+    tiers = [TierSpec(api.name, api.answer, api.price,
+                      prompt=PromptSpec((0, 1, 2), 110, 140))]
+    tiers += [TierSpec(g.name, g.answer, price, n_out=GEN_SERVE_NEW)
+              for g, price in gens]
+    return ServingPipeline(
+        tiers=tiers, thresholds=(0.5,) * len(gens),
+        scorer=lambda toks, ans: SC.score(sp, toks, ans),
+        cache=CompletionCache(capacity=1024, threshold=0.995),
+        embed=functools.partial(embed_queries, sp, cfg=SC.SCORER_CFG),
+        full_prompt_tokens=FULL_PROMPT_TOKENS, pad_token=synthetic.PAD,
+        baseline_price=gens[-1][1], compact="device", device="cuda")
+
+
+def _serve_twice(pipe, tokens, label):
+    """Serve ``tokens`` twice with every kernel counter zeroed before and
+    read after (the main path's launches). Returns ([(result, wall s)],
+    launches by kernel)."""
+    import torch
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    passes = []
+    for _ in range(2):
+        t = time.perf_counter()
+        res = pipe.serve(tokens)
+        torch.cuda.synchronize()
+        passes.append((res, time.perf_counter() - t))
+    launches = {k: c.launches for k, c in counters.items()}
+    for i, (res, wall) in enumerate(passes):
+        print(f"{label} pass {i + 1} ({wall:.3f}s wall): {res.summary()}")
+    return passes, launches
+
+
+# -- kernel 4: the grouped expert matmul -----------------------------------
+
+# Granite-3.0-1B-A400M's expert shapes: E 32, d 1024, d_expert 512; C =
+# b x cap: prefill of 16-token buckets (cap 5) at B = 8 and 64, decode
+# (cap 1) at B = 8 and 64; "gate/up" (K 1024, F 512) and "down" (512, 1024)
+GMM_TIMED = [(f"{kind} {phase} B={b}", c, k, f)
+             for phase, b, c in (("decode", 8, 8), ("decode", 64, 64),
+                                 ("prefill", 8, 40), ("prefill", 64, 320))
+             for kind, k, f in (("gate/up", 1024, 512), ("down", 512, 1024))]
+
+
+def phase_gmm():
+    """The grouped matmul against its plain version on a sweep (fp32 and
+    bf16, ragged C / K / F, C from 1 to 320), then at Granite's own
+    shapes, timed beside the plain version and ``torch.bmm``."""
+    import torch
+    from repro_torch.kernels.moe_gmm.ops import gmm, gmm_reference
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst, n_checks = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for e, c, k, f in ((32, 1, 1024, 512), (32, 8, 1024, 512),
+                           (32, 8, 512, 1024), (32, 40, 1024, 512),
+                           (32, 64, 512, 1024), (32, 320, 1024, 512),
+                           (3, 77, 33, 130), (2, 33, 100, 65),
+                           (5, 200, 72, 40), (1, 7, 5, 3)):
+            x = torch.randn(e, c, k, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(e, k, f, generator=gen, device="cuda").to(dtype)
+            err = _agree_rel(gmm(x, w), gmm_reference(x, w),
+                             f"moe_gmm at E={e} C={c} K={k} F={f} {dtype}")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            n_checks += 1
+    print(f"[gmm] {n_checks} shapes agree with the plain version (fp32 max "
+          f"abs err {worst:.3e}; fp32 <= {FP32_REL} x max|plain|, bf16 <= "
+          f"{BF16_REL} x max|plain|)")
+    rows = [_gmm_row(label, 32, c, k, f) for label, c, k, f in GMM_TIMED]
+    return {**rows[0], "sweep_fp32_max_abs_err": worst, "granite": rows}
+
+
+def _gmm_row(label, e, c, k, f):
+    """Check the grouped matmul at one of Granite's shapes (bf16) and time
+    it beside the plain version and ``torch.bmm`` on the same inputs.
+    Restores the launch counter: none of this is a main path."""
+    import torch
+    from repro_torch.kernels.moe_gmm.ops import gmm, gmm_reference
+    gen = torch.Generator(device="cuda").manual_seed(SEED + c + k)
+    x = torch.randn(e, c, k, generator=gen, device="cuda").bfloat16()
+    w = (0.02 * torch.randn(e, k, f, generator=gen, device="cuda")).bfloat16()
+    before = gmm.launches
+    err = _agree_rel(gmm(x, w), gmm_reference(x, w),
+                     f"moe_gmm at Granite's {label}")
+    ms = _time_ms(lambda: gmm(x, w))
+    gmm.launches = before
+    plain = _time_ms(lambda: gmm_reference(x, w))
+    lib = _time_ms(lambda: torch.bmm(x, w))
+    bound, by = _bound(2 * (e * c * k + e * k * f + e * c * f),
+                       2 * e * c * k * f, "bfloat16")
+    row = {"shape": f"{label}: E={e} C={c} K={k} F={f} bf16",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+           "bound_ms": bound, "bound_by": by}
+    print(f"  gmm {row['shape']}: max abs err {err:.2e} | kernel {ms:.4f} ms "
+          f"| plain {plain:.4f} ms | bmm {lib:.4f} ms | bound {bound:.4f} ms "
+          f"({by})")
+    return row
+
+
+# -- kernel 5: the SSD chunked scan ----------------------------------------
+
+def _ssd_inputs(b, s, h, p, n, dtype, gen):
+    """x, B, C ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1)) and a =
+    -exp(0.3 N(0, 1)) in fp32 (tests/test_kernels.py's draws)."""
+    import torch
+    import torch.nn.functional as F
+    mk = lambda *shape: torch.randn(*shape, generator=gen,  # noqa: E731
+                                    device="cuda")
+    return (mk(b, s, h, p).to(dtype), F.softplus(mk(b, s, h)),
+            -torch.exp(0.3 * mk(h)), mk(b, s, n).to(dtype),
+            mk(b, s, n).to(dtype))
+
+
+def phase_ssd():
+    """The SSD scan against its plain version, y and final state, on a
+    sweep (fp32 and bf16; S a multiple of the chunk and ragged) and at
+    Mamba2-1.3B's shape (H 64, P 64, N 128, chunk 128), timed."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import ssd_reference, ssd_scan
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    worst, n_checks = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, p, n, chunk in ((1, 64, 2, 32, 16, 32),
+                                     (2, 256, 4, 64, 32, 64),
+                                     (2, 77, 3, 32, 16, 32),
+                                     (8, 13, 64, 64, 128, 13),
+                                     (1, 300, 64, 64, 128, 128),
+                                     (2, 256, 8, 64, 128, 128),
+                                     (3, 1, 4, 64, 128, 128)):
+            args = _ssd_inputs(b, s, h, p, n, dtype, gen)
+            what = f"ssd_scan at B={b} S={s} H={h} P={p} N={n} chunk={chunk}"
+            y, state = ssd_scan(*args, chunk=chunk, return_state=True)
+            ry, rstate = ssd_reference(*args, chunk=min(chunk, s))
+            err = _agree_rel(y, ry, f"{what} {dtype}, y")
+            # the state is fp32 on both sides, whatever the input type
+            _agree_rel(state, rstate, f"{what} {dtype}, final state")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            n_checks += 1
+    print(f"[ssd] {n_checks} shapes agree with the plain version, y and "
+          f"final state (fp32 max abs err {worst:.3e}; fp32 <= {FP32_REL} x "
+          f"max|plain|, bf16 y <= {BF16_REL} x max|plain|)")
+    rows = [_ssd_row(b, s) for b, s in ((8, 13), (64, 13), (1, 300),
+                                        (64, 64))]
+    return {**rows[0], "sweep_fp32_max_abs_err": worst, "library_ms": None,
+            "mamba2": rows}
+
+
+def _ssd_row(b, s, h=64, p=64, n=128, chunk=128):
+    """Check the SSD scan at Mamba2-1.3B's shape for a (B, S) prefill
+    (bf16, dt fp32) and time it beside the plain version. No single
+    PyTorch call computes this function, so there is no library time.
+    Restores the launch counter: none of this is a main path."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import ssd_reference, ssd_scan
+    gen = torch.Generator(device="cuda").manual_seed(SEED + b + s)
+    args = _ssd_inputs(b, s, h, p, n, torch.bfloat16, gen)
+    q = min(chunk, s)
+    before = ssd_scan.launches
+    y, state = ssd_scan(*args, chunk=q, return_state=True)
+    ry, rstate = ssd_reference(*args, chunk=q)
+    err = _agree_rel(y, ry, f"ssd_scan at Mamba2's B={b} S={s}")
+    _agree_rel(state, rstate, f"ssd_scan at Mamba2's B={b} S={s}, state")
+    ms = _time_ms(lambda: ssd_scan(*args, chunk=q, return_state=True))
+    ssd_scan.launches = before
+    plain = _time_ms(lambda: ssd_reference(*args, chunk=q))
+    nbytes = (2 * 2 * b * s * h * p + 4 * b * s * h + 4 * h
+              + 2 * 2 * b * s * n + 4 * b * h * p * n)
+    flops = 0
+    for t0 in range(0, s, q):             # per chunk of L true rows
+        ell = min(q, s - t0)
+        pairs = ell * (ell + 1) // 2
+        flops += b * (pairs * 2 * n                      # C.B, per batch row
+                      + h * (pairs * 2 * p               # M (x dt)
+                             + 2 * ell * 2 * p * n))     # C.state, state upd
+    bound, by = _bound(nbytes, flops, "bfloat16")
+    row = {"shape": f"B={b} S={s} H={h} P={p} N={n} chunk={q} bf16",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "library_ms": None, "bound_ms": bound, "bound_by": by}
+    print(f"  ssd {row['shape']}: max abs err {err:.2e} | kernel {ms:.4f} ms "
+          f"| plain {plain:.4f} ms | no library call | bound {bound:.5f} ms "
+          f"({by})")
+    return row
+
+
+# -- the MoE and SSM generation tiers --------------------------------------
+
+def phase_generate_family(name, tag):
+    """One model at full width and depth from seeded weights, as
+    [generate] (a) and (b) run Gemma: fp32 greedy tokens on the card
+    against the CPU for 8 x 13 and 1 x 300-token prompts (16 new), bf16
+    times per prefill and per decoded token at B = 8 and 64 with the
+    launches of that timed run, bf16 logits teacher-forced against fp32
+    within REF_DRIFT_RATIO x the drift of the same weights and tokens on
+    the CPU's plain path. Returns (bf16 params, times, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.serving.engine import GenerationEngine
+    cfg = ARCHS[name]
+    cfg32, master, p32, p16 = _init_model(cfg, tag)
+    rng = np.random.default_rng(SEED + 23)
+    prompts = {"8x13": rng.integers(1, cfg.vocab, (8, 13)).astype(np.int32),
+               "1x300": rng.integers(1, cfg.vocab, (1, 300)).astype(np.int32)}
+    _fp32_vs_cpu(GenerationEngine(cfg32, p32, device="cuda"), master, cfg32,
+                 prompts, max_excused=2)
+    eng16 = GenerationEngine(cfg, p16, device="cuda")
+    timed = {8: prompts["8x13"],
+             64: rng.integers(1, cfg.vocab, (64, 13)).astype(np.int32)}
+    times, launches = _bf16_checks(eng16, p16, p32, cfg, cfg32, prompts,
+                                   timed, master=master)
+    del master
+    # every generate of the timed run: one prefill and GEN_NEW - 1 decode
+    # steps; SwiGLU MoE layers launch 3 gmm per forward, Mamba layers one
+    # ssd per prefill (decode is a one-step update)
+    n_generates = len(timed) * (GEN_TIMING_REPS + 1)
+    n_moe = sum(sp.ffn == "moe" for sp in cfg.layers)
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layers)
+    expect = {"moe_gmm": n_generates * 3 * n_moe * GEN_NEW,
+              "ssd_scan": n_generates * n_mamba}
+    print(f"  (b) expected from the layer pattern: {expect}")
+    for kernel, n in expect.items():
+        if launches[kernel] != n:
+            raise AssertionError(f"{kernel}: {launches[kernel]} launches on "
+                                 f"the timed generation, expected {n}")
+    if not any(launches[k] for k in expect):
+        raise AssertionError(f"no MoE or SSM kernel launched: {launches}")
+    del p32, eng16
+    torch.cuda.empty_cache()
+    return p16, times, launches
+
+
+def phase_serve_moe_ssm(p_ssm, p_moe):
+    """A cascade of the GPT-J encoder tier, a Mamba2-1.3B generation tier
+    and a Granite-MoE generation tier (bf16, first generated token mod the
+    classes, 4 new tokens), serving 256 requests twice. Returns the
+    launches of the five kernels over the two passes."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.cost import TABLE1
+    from repro_torch.data import synthetic
+    from repro_torch.serving.engine import EnginePool, generation_tier
+    n_classes = synthetic.N_CLASSES["headlines"]
+    pool = EnginePool(max_new_tokens=GEN_SERVE_NEW)
+    gens = []
+    for name, params, price in (("mamba2-1.3b", p_ssm, "ChatGPT"),
+                                ("granite-moe-1b-a400m", p_moe, "GPT-4")):
+        eng = pool.get(ARCHS[name], params, device="cuda")
+        gens.append((generation_tier(
+            name, eng, TABLE1[price],
+            decode_answer=lambda g: g[:, 0] % n_classes,
+            n_new=GEN_SERVE_NEW), TABLE1[price]))
+    pipe = _cascade_pipeline(gens)
+    passes, launches = _serve_twice(pipe, _requests(N_GEN_REQUESTS,
+                                                    SEED + 29),
+                                    "[serve-moe-ssm]")
+    first, second = passes[0][0], passes[1][0]
+    print(f"  launches over both passes: {launches}; pool "
+          f"{pool.compile_stats}")
+    if min(first.tier_counts) <= 0 or min(launches.values()) <= 0:
+        raise AssertionError(f"a tier saw no traffic or a kernel never "
+                             f"launched: tiers {first.tier_counts}, "
+                             f"launches {launches}")
+    if second.cache_hit_rate != 1.0 or any(second.tier_counts):
+        raise AssertionError(f"second pass: hit rate "
+                             f"{second.cache_hit_rate}, tier traffic "
+                             f"{second.tier_counts}")
+    if not (first.answers[first.stopped_at >= 1] < n_classes).all():
+        raise AssertionError("a generation tier answered outside its classes")
+    return launches
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         tree = list(tree.values())
@@ -767,9 +1238,10 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t0 = time.perf_counter()
-    kind = phase_device()
+    kind, smi = phase_device()
     phase_build()
     flash = phase_flash()
     comp = phase_compact()
@@ -777,43 +1249,51 @@ def main() -> int:
     decode_err = phase_decode()
     gen_launches, decode_rows, flash_gen_rows = phase_generate()
     flash["gemma"] += flash_gen_rows
+    gmm_rec = phase_gmm()
+    ssd_rec = phase_ssd()
+    p_moe, moe_times, moe_launches = phase_generate_family(
+        "granite-moe-1b-a400m", "generate-moe")
+    p_ssm, ssm_times, ssm_launches = phase_generate_family(
+        "mamba2-1.3b", "generate-ssm")
+    mix_launches = phase_serve_moe_ssm(p_ssm, p_moe)
+    paths = {"serve": serve_launches, "generate": gen_launches,
+             "generate-moe": moe_launches, "generate-ssm": ssm_launches,
+             "serve-moe-ssm": mix_launches}
+
+    def record(name, source, replaces, fields):
+        by_path = {k: v.get(name, 0) for k, v in paths.items()}
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/{source}",
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, **fields}
+
     records = [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
-         "launches": (serve_launches["flash_attention"]
-                      + gen_launches["flash_attention"]),
-         "launches_by_path": {"serve": serve_launches["flash_attention"],
-                              "generate": gen_launches["flash_attention"]},
-         **flash},
-        {"name": "cascade_compact", "route": "cuda",
-         "source": "src/repro_torch/kernels/cascade_compact/cascade_compact.cu",
-         "replaces": "src/repro/kernels/cascade_compact/kernel.py:56",
-         "launches": (serve_launches["cascade_compact"]
-                      + gen_launches["cascade_compact"]),
-         "launches_by_path": {"serve": serve_launches["cascade_compact"],
-                              "generate": gen_launches["cascade_compact"]},
-         **comp},
-        {"name": "decode_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/decode_attention/"
-                   "decode_attention.cu",
-         "replaces": "src/repro/kernels/decode_attention/kernel.py:58",
-         "launches": (serve_launches["decode_attention"]
-                      + gen_launches["decode_attention"]),
-         "launches_by_path": {"serve": serve_launches["decode_attention"],
-                              "generate": gen_launches["decode_attention"]},
-         **decode_rows[0],
-         "max_abs_err": max(r["max_abs_err"] for r in decode_rows),
-         "sweep_fp32_max_abs_err": decode_err, "gemma_tier": decode_rows},
+        record("flash_attention", "flash_attention/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:69", flash),
+        record("cascade_compact", "cascade_compact/cascade_compact.cu",
+               "src/repro/kernels/cascade_compact/kernel.py:56", comp),
+        record("decode_attention", "decode_attention/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:58",
+               {**decode_rows[0],
+                "max_abs_err": max(r["max_abs_err"] for r in decode_rows),
+                "sweep_fp32_max_abs_err": decode_err,
+                "gemma_tier": decode_rows}),
+        record("moe_gmm", "moe_gmm/moe_gmm.cu",
+               "src/repro/kernels/moe_gmm/kernel.py:37", gmm_rec),
+        record("ssd_scan", "ssd_scan/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan/kernel.py:66", ssd_rec),
     ]
     for r in records:
         if not (math.isfinite(r["ms"]) and r["launches"] > 0):
             raise AssertionError(f"bad record {r}")
+    print(f"[generate-moe/ssm] bf16 ms per prefill / per decoded token: "
+          f"granite {moe_times}, mamba2 {ssm_times}")
     print("[kernels] " + ", ".join(
         f"{r['name']}: {r['launches']} launches "
         f"({', '.join(f'{k} {v}' for k, v in r['launches_by_path'].items())})"
         f", matched its plain version" for r in records)
         + f" ({time.perf_counter() - t0:.1f}s total)")
+    print(f"[device] {smi}")     # again, beside the numbers above it
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

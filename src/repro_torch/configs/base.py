@@ -2,36 +2,57 @@
 
 A stack is described as ``prefix ++ (period * n_periods) ++ suffix`` of
 ``LayerSpec`` entries; the port runs it as a plain loop over ``layers``.
-Supported: attention mixers (full or sliding window), dense FFNs with
-gelu / geglu / swiglu, layernorm or rmsnorm, absolute, rope or no
-positions, float32 or bfloat16. Mamba mixers, MoE FFNs and mrope are
-refused with an error until their slice is ported, rather than silently
-mis-run; the config has no MoE, SSM or MLA fields to set.
+Supported: attention mixers (full or sliding window) and Mamba-2 mixers,
+dense FFNs with gelu / geglu / swiglu and MoE FFNs, layernorm or
+rmsnorm, absolute, rope or no positions, float32 or bfloat16. MLA and
+mrope are refused with an error until their slice is ported, rather than
+silently mis-run; the config has no MLA field to set.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
-_MIXERS = ("attn", "attn_sliding")
-_FFNS = ("dense", "none")
-_LATER = "is not ported yet (MoE, SSM, MLA and mrope come with kernels 4-5)"
+_MIXERS = ("attn", "attn_sliding", "mamba")
+_FFNS = ("dense", "moe", "none")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    """Mixture-of-experts FFN config (capacity-based routing)."""
+
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0            # shared (always-on) experts
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMCfg:
+    """Mamba-2 SSD mixer config."""
+
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    d_conv: int = 4
+    chunk: int = 256             # SSD chunk length
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One transformer sub-layer: a sequence mixer + an FFN."""
 
-    mixer: str                   # "attn" | "attn_sliding"
-    ffn: str                     # "dense" | "none"
+    mixer: str                   # "attn" | "attn_sliding" | "mamba"
+    ffn: str                     # "dense" | "moe" | "none"
 
     def __post_init__(self):
         if self.mixer not in _MIXERS:
-            raise ValueError(f"mixer {self.mixer!r} {_LATER}; expected one "
-                             f"of {_MIXERS}")
+            raise ValueError(f"mixer {self.mixer!r} is not ported; expected "
+                             f"one of {_MIXERS}")
         if self.ffn not in _FFNS:
-            raise ValueError(f"ffn {self.ffn!r} {_LATER}; expected one of "
-                             f"{_FFNS}")
+            raise ValueError(f"ffn {self.ffn!r} is not ported; expected one "
+                             f"of {_FFNS}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +72,9 @@ class ModelConfig:
     period: Tuple[LayerSpec, ...] = ()
     n_periods: int = 0
     suffix: Tuple[LayerSpec, ...] = ()
+
+    moe: Optional[MoECfg] = None
+    ssm: Optional[SSMCfg] = None
 
     pos: str = "rope"            # "rope" | "abs" | "none"
     rope_theta: float = 10_000.0
@@ -77,7 +101,13 @@ class ModelConfig:
             if value not in ok:
                 raise ValueError(f"{field}={value!r} is not ported; expected "
                                  f"one of {ok}")
-        if self.n_kv_heads <= 0 or self.n_heads % self.n_kv_heads:
+        kinds = {s.mixer for s in self.layers} | {s.ffn for s in self.layers}
+        for kind, field, sub in (("moe", "moe", self.moe),
+                                 ("mamba", "ssm", self.ssm)):
+            if kind in kinds and sub is None:
+                raise ValueError(f"{self.name}: {kind} layers need {field}=")
+        if self.has_attention and (self.n_kv_heads <= 0
+                                   or self.n_heads % self.n_kv_heads):
             raise ValueError(f"n_heads={self.n_heads} must be a positive "
                              f"multiple of n_kv_heads={self.n_kv_heads}")
 
@@ -85,6 +115,10 @@ class ModelConfig:
     def layers(self) -> Tuple[LayerSpec, ...]:
         """The flattened per-layer spec list."""
         return self.prefix + self.period * self.n_periods + self.suffix
+
+    @property
+    def has_attention(self) -> bool:
+        return any(s.mixer.startswith("attn") for s in self.layers)
 
     @property
     def q_dim(self) -> int:
@@ -98,8 +132,10 @@ class ModelConfig:
         """The reference's 2-layer CPU variant of the same family
         (``repro/configs/base.py::reduced``): d_model <= 256, head_dim
         <= 64, <= 4 heads, d_ff <= 512, vocab <= 1024, window <= 64,
-        max_seq 512, float32. The 2 layers are the first period's head
-        (so Gemma-3 keeps two sliding layers), else the prefix's."""
+        max_seq 512, float32; <= 4 experts, top-2, d_expert <= 128, <= 1
+        shared expert; SSM d_state 16, head_dim 32, chunk 32. The 2 layers
+        are the first period's head (so Gemma-3 keeps two sliding layers),
+        else the prefix's."""
         d_model = min(self.d_model, 256)
         head_dim = min(self.head_dim, 64) if self.head_dim else 0
         n_heads = min(self.n_heads, 4) if self.n_heads else 0
@@ -107,6 +143,16 @@ class ModelConfig:
                 if self.n_kv_heads else 0)
         if self.n_kv_heads == self.n_heads:  # keep MHA archs MHA
             n_kv = n_heads
+        moe = ssm = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_expert=min(self.moe.d_expert, 128),
+                n_shared=min(self.moe.n_shared, 1))
+        if self.ssm is not None:
+            ssm = dataclasses.replace(self.ssm, d_state=16, head_dim=32,
+                                      chunk=32)
         if self.period:
             period = self.period[:2] if len(self.period) >= 2 else self.period
             n_periods = 2 // len(period)
@@ -132,6 +178,8 @@ class ModelConfig:
             period=period,
             n_periods=n_periods,
             suffix=suffix,
+            moe=moe,
+            ssm=ssm,
             window=min(self.window, 64) if self.window else 0,
             max_seq=512,
             dtype="float32",

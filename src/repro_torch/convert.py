@@ -9,7 +9,9 @@ masters (the reference keeps fp32 params and casts at each use) and
 handed out in the compute dtype by ``transformer.cast_params``, which
 gives the same bf16 values the reference's casts do. Whatever leaves the
 tree has (gated MLPs' ``gate``, bias-less norms, no ``embed.pos`` or
-``embed.unembed``) are carried over as they are. It imports no jax.
+``embed.unembed``; an MoE layer's router, stacked experts and ``sh_*``;
+a Mamba layer's projections, convs, ``A_log``, ``D``, ``dt_bias`` and
+norm) are carried over as they are. It imports no jax.
 """
 from __future__ import annotations
 

@@ -20,8 +20,13 @@ def resolve_device(device="cuda") -> torch.device:
         # The encoders are float32 (models.classifier.encoder_config).
         # TF32 keeps ~3 decimal digits, which would break parity with the
         # plain versions and the JAX reference, so both switches stay off.
+        # The reference's bf16 matmuls sum in fp32 and round once
+        # (preferred_element_type=float32); cuBLAS may otherwise round
+        # split-K partial sums to bf16.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; expected 'cuda' "
                          "or 'cpu'")

@@ -35,17 +35,23 @@ def apply_norm(p: Params, x, cfg: ModelConfig, eps: float = 1e-6):
     """LayerNorm (when the config says so or ``p`` has a bias) or RMSNorm
     over the last axis, in fp32, eps 1e-6. RMSNorm's scale multiplies as
     it is (no ``1 +``), as in the reference."""
+    if cfg.norm != "layernorm" and "bias" not in p:
+        return rmsnorm(x, p["scale"], eps)
     xf = x.float()
-    if cfg.norm == "layernorm" or "bias" in p:
-        mu = xf.mean(-1, keepdim=True)
-        var = (xf - mu).square().mean(-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"]
-        if "bias" in p:
-            y = y + p["bias"]
-    else:
-        ms = xf.square().mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + eps) * p["scale"]
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"]
+    if "bias" in p:
+        y = y + p["bias"]
     return y.to(x.dtype)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """RMSNorm over the last axis in fp32, returned in x's dtype (the
+    Mamba mixer's gated norm calls it on its own)."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
 
 
 def apply_dense(p: Params, x, cfg: ModelConfig):

@@ -4,8 +4,10 @@ embedding, blocks, the layer loop, prefill and decode.
 The reference stacks the ``period`` layers on a leading axis and runs
 them with ``lax.scan``; here ``params["layers"]`` is a list with one
 dict per layer, in ``cfg.layers`` order, the scan is a Python loop, and
-a decode cache is a list with one ``{"k", "v"}`` dict per layer
-(``models/attention.py``).
+a decode cache is a list with one dict per layer: ``{"k", "v"}`` for
+attention (``models/attention.py``), ``{"conv_x", "conv_bc", "ssm"}``
+for Mamba (``models/ssm.py``). A block's mixer is attention or Mamba and
+its FFN dense, MoE (``models/moe.py``) or none, as ``LayerSpec`` says.
 
 Public API:
   init_params(cfg, seed=, device=)       -> params
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import moe, ssm
 from repro_torch.models.attention import apply_attn, init_attn_cache
 from repro_torch.models.layers import (apply_mlp, apply_norm, compute_dtype,
                                        embed_tokens, unembed)
@@ -52,11 +55,19 @@ class _Init:
 
 def _init_block(init: _Init, cfg: ModelConfig, spec: LayerSpec):
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    p = {"norm1": init.norm(cfg),
-         "mixer": {"wq": init.normal(d, h, hd), "wk": init.normal(d, kvh, hd),
-                   "wv": init.normal(d, kvh, hd), "wo": init.normal(h, hd, d)}}
-    if spec.ffn == "dense":
+    p = {"norm1": init.norm(cfg)}
+    if spec.mixer == "mamba":
+        p["mixer"] = ssm.init_mamba(init, cfg)
+    else:
+        p["mixer"] = {"wq": init.normal(d, h, hd),
+                      "wk": init.normal(d, kvh, hd),
+                      "wv": init.normal(d, kvh, hd),
+                      "wo": init.normal(h, hd, d)}
+    if spec.ffn != "none":
         p["norm2"] = init.norm(cfg)
+    if spec.ffn == "moe":
+        p["ffn"] = moe.init_moe(init, cfg)
+    elif spec.ffn == "dense":
         p["ffn"] = {"up": {"w": init.normal(d, cfg.d_ff)},
                     "down": {"w": init.normal(cfg.d_ff, d)}}
         if cfg.ffn_act in ("swiglu", "geglu"):
@@ -89,8 +100,10 @@ def _init_params(init: _Init, cfg: ModelConfig):
 
 def cast_params(params, cfg: ModelConfig):
     """fp32 master params -> the compute copy: every leaf of 2 or more
-    dims in ``cfg.dtype``, the 1-d norm scales and biases in fp32, as
-    the reference's ``cast`` at each use gives them. The logits table
+    dims in ``cfg.dtype``, the 1-d leaves (norm scales and biases, and
+    Mamba's ``A_log``, ``D``, ``dt_bias``, conv biases and gated norm) in
+    fp32, as the reference's ``_cast_params`` keeps them and its ``cast``
+    at each use gives them. The logits table
     (``embed.tok`` when tied, else ``embed.unembed``) is rounded to
     ``cfg.dtype`` but stored in fp32, so the unembedding is an fp32
     product of compute-dtype values, like the reference's einsum with
@@ -117,13 +130,15 @@ def cast_params(params, cfg: ModelConfig):
 
 def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int,
                      dtype=None, device="cpu"):
+    if spec.mixer == "mamba":
+        return ssm.init_mamba_cache(cfg, batch, dtype, device)
     return init_attn_cache(cfg, spec.mixer == "attn_sliding", batch, seq,
                            dtype, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
                device="cpu"):
-    """Zeros decode cache: one ``{"k", "v"}`` per layer, in order."""
+    """Zeros decode cache: one dict per layer, in order."""
     return [init_block_cache(cfg, s, batch, seq, dtype, device)
             for s in cfg.layers]
 
@@ -131,16 +146,26 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
 def apply_block(p, x, *, cfg: ModelConfig, spec: LayerSpec,
                 mode: str = "train", positions=None, cache=None, pos: int = 0,
                 max_len: int = 0):
-    """One block (mixer + FFN). Returns (x, new_cache)."""
+    """One block (mixer + FFN). Returns (x, new_cache); an MoE FFN's
+    load-balance loss (``moe.apply_moe``) is a training term and is not
+    kept here."""
     h = apply_norm(p["norm1"], x, cfg)
-    y, new_cache = apply_attn(p["mixer"], h, cfg=cfg,
-                              sliding=spec.mixer == "attn_sliding",
-                              mode=mode, positions=positions, cache=cache,
-                              pos=pos, max_len=max_len)
+    if spec.mixer == "mamba":
+        y, new_cache = ssm.apply_mamba(p["mixer"], h, cfg=cfg, mode=mode,
+                                       cache=cache)
+    else:
+        y, new_cache = apply_attn(p["mixer"], h, cfg=cfg,
+                                  sliding=spec.mixer == "attn_sliding",
+                                  mode=mode, positions=positions, cache=cache,
+                                  pos=pos, max_len=max_len)
     x = x + y
     if spec.ffn != "none":
         h = apply_norm(p["norm2"], x, cfg)
-        x = x + apply_mlp(p["ffn"], h, cfg)
+        if spec.ffn == "moe":
+            y, _ = moe.apply_moe(p["ffn"], h, cfg=cfg)
+        else:
+            y = apply_mlp(p["ffn"], h, cfg)
+        x = x + y
     return x, new_cache
 
 

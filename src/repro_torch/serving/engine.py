@@ -18,9 +18,13 @@ Exactness of the bucketing (as in the reference):
   * prompt padding   — right-pad tokens, read prefill logits at the true
     last position, start decode at the true length so pad slots are
     overwritten before decode reads them. Exact for attention stacks
-    whose ring cache never truncates the padded prompt; otherwise
-    (``_seq_paddable``) the prompt keeps its exact length.
-Greedy decoding is therefore the same whatever the bucket. With
+    whose ring cache never truncates the padded prompt; otherwise, and
+    for any stack with a Mamba layer (``_seq_paddable``), the prompt
+    keeps its exact length.
+Greedy decoding is therefore the same whatever the bucket, except in
+MoE layers: an expert's capacity grows with the padded prompt length
+(``models/moe.py::capacity``), in the reference as here, so a padded
+prompt may keep a token that its exact length would drop. With
 ``temperature > 0`` every token, the post-prefill one included, is drawn
 from ``softmax(logits / temperature)`` with a ``torch.Generator`` seeded
 from ``seed`` on the engine's device, over the padded batch: the same
@@ -132,12 +136,14 @@ class GenerationEngine:
         self.compile_stats = {"prefill_compiles": 0, "prefill_calls": 0}
 
     def _seq_paddable(self, seq_bucket: int) -> bool:
-        """Right-padding the prompt is exact iff no sliding-window ring
-        buffer would evict padded-prompt slots before decode overwrites
-        them (i.e. the padded prompt fits the window). The reference also
-        refuses SSM mixers here; the port's configs have none."""
-        if self.cfg.window and any(s.mixer == "attn_sliding"
-                                   for s in self.cfg.layers):
+        """Right-padding the prompt is exact iff every mixer is attention
+        (a Mamba layer's state would advance over the pad tokens) and no
+        sliding-window ring buffer would evict padded-prompt slots before
+        decode overwrites them (i.e. the padded prompt fits the window)."""
+        specs = self.cfg.layers
+        if any(not s.mixer.startswith("attn") for s in specs):
+            return False
+        if self.cfg.window and any(s.mixer == "attn_sliding" for s in specs):
             return seq_bucket < self.cfg.window
         return True
 

@@ -83,6 +83,8 @@ def _entry_points():
 
     cfg = NM.tier_config("GPT-J")
     gemma = ARCHS["gemma3-1b"].reduced()
+    granite = ARCHS["granite-moe-1b-a400m"].reduced()
+    mamba = ARCHS["mamba2-1.3b"].reduced()
     tier = CascadeTier("t", lambda q: (np.zeros(len(q), int),
                                        np.zeros(len(q))))
     return {
@@ -90,7 +92,13 @@ def _entry_points():
             gemma, init_params(gemma, device="cpu")),
         "EnginePool.get": lambda: EnginePool().get(
             gemma, init_params(gemma, device="cpu")),
+        "GenerationEngine[moe]": lambda: GenerationEngine(
+            granite, init_params(granite, device="cpu")),
+        "GenerationEngine[ssm]": lambda: GenerationEngine(
+            mamba, init_params(mamba, device="cpu")),
         "init_params": lambda: init_params(cfg),
+        "init_params[moe]": lambda: init_params(granite),
+        "init_params[ssm]": lambda: init_params(mamba),
         "init_classifier": lambda: init_classifier(SCORER_CFG, 1),
         "init_marketplace": lambda: NM.init_marketplace(
             "headlines", tiers=NM.tier_subset(["GPT-J"])),
@@ -109,7 +117,10 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["GenerationEngine", "EnginePool.get",
-                                  "init_params", "init_classifier",
+                                  "GenerationEngine[moe]",
+                                  "GenerationEngine[ssm]", "init_params",
+                                  "init_params[moe]", "init_params[ssm]",
+                                  "init_classifier",
                                   "init_marketplace", "params_from_numpy",
                                   "assemble_pipeline", "ServingPipeline",
                                   "execute_cascade"])

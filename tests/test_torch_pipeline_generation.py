@@ -1,10 +1,11 @@
-"""Slice 2 as a whole: a generation-backed cascade tier from the port's
-``EnginePool`` served through the port's ``ServingPipeline``, against the
-same pipeline in the JAX package on converted weights (reduced
-Gemma-3-1B, fp32, CPU). Answers, cost, ``stopped_at`` and tier counts
+"""Slices 2 and 3 as a whole: generation-backed cascade tiers from the
+port's ``EnginePool`` served through the port's ``ServingPipeline``,
+against the same pipeline in the JAX package on converted weights
+(reduced Gemma-3-1B; and a Mamba2 tier then a Granite-MoE tier, reduced;
+fp32, CPU). Answers, cost, ``stopped_at`` and tier counts
 must be identical: the answers are greedy tokens mod a small number and
 the cost is exact token accounting, so nothing here is compared within
-a tolerance. One JAX engine serves every reference run of the module:
+a tolerance. One JAX engine serves every Gemma reference run:
 all its calls fall in one (batch 8, prompt 16, cache 32) bucket, so the
 reference compiles once."""
 import jax
@@ -120,3 +121,43 @@ def test_cascade_server_over_generation_tiers_matches_jax(model):
                                                 device="cpu")).serve(toks)
     for key in ("answers", "cost", "stopped_at", "tier_counts"):
         np.testing.assert_array_equal(got[key], ref[key])
+
+
+def test_pipeline_with_ssm_and_moe_generation_tiers_matches_jax():
+    """A free tier, a Mamba2 generation tier, then a Granite-MoE one (the
+    serve path ``chip_smoke.py`` drives at full width), against the same
+    pipeline in the JAX package: answers, cost, ``stopped_at`` and tier
+    counts identical."""
+    def build(E_, cost_cls, pipe_cls, spec_cls, engines, **device_kw):
+        tiers = [spec_cls("cheap", lambda t: np.zeros(len(t), np.int32),
+                          cost_cls(1.0, 1.0, 0.0))]
+        for name, eng in engines:
+            gen = E_.generation_tier(name, eng, cost_cls(50.0, 50.0, 0.0),
+                                     decode_answer=lambda g: g[:, 0] % 3,
+                                     n_new=3)
+            tiers.append(spec_cls(name, gen.answer, cost_cls(50.0, 50.0, 0.0),
+                                  n_out=3))
+        return pipe_cls(
+            tiers=tiers, thresholds=[0.5, 0.5],
+            scorer=lambda t, a: np.where(t[:, 0] % 3 == a, 0.9, 0.1),
+            batch_size=4, **device_kw)
+
+    names = ("mamba2-1.3b", "granite-moe-1b-a400m")
+    jengines, pengines = [], []
+    for name in names:
+        jcfg, pcfg = JARCHS[name].reduced(), ARCHS[name].reduced()
+        params = numpy_params(jcfg, seed=1)
+        jengines.append((name, JE.GenerationEngine(
+            jcfg, jax.tree.map(jnp.asarray, params), max_new_tokens=3)))
+        pengines.append((name, E.EnginePool(max_new_tokens=3).get(
+            pcfg, params_from_numpy(params, pcfg, device="cpu"),
+            device="cpu")))
+    toks = _toks(7, n=10)
+    ref = build(JE, JApiCost, JPipeline, JTierSpec, jengines).serve(toks)
+    res = build(E, ApiCost, ServingPipeline, TierSpec, pengines,
+                device="cpu").serve(toks)
+    assert res.tier_counts[1] > 0 and res.tier_counts[2] > 0
+    np.testing.assert_array_equal(res.answers, ref.answers)
+    np.testing.assert_array_equal(res.cost, ref.cost)
+    np.testing.assert_array_equal(res.stopped_at, ref.stopped_at)
+    assert res.tier_counts == ref.tier_counts
