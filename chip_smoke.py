@@ -9,7 +9,11 @@ exits non-zero:
   [device]   the card's name, and its name and power limit as
              ``nvidia-smi`` reports them;
   [build]    every CUDA kernel built from the sources (one nvcc each, in
-             parallel), with ptxas's register and spill report;
+             parallel), with ptxas's registers, spills and shared bytes
+             per kernel instance (a spill in the gmm kernels fails);
+  [grad]     each float kernel wrapper refuses a CUDA input that requires
+             grad under grad mode (no kernel has a backward yet) and runs
+             under ``torch.no_grad()``;
   [flash]    the flash-attention kernel against its plain PyTorch version
              at the encoder serve path's shapes, on a sweep (ragged S,
              head dims, masks, GQA, bf16) and at Gemma-3-1B's prefill
@@ -24,6 +28,8 @@ exits non-zero:
              with three encoder tiers and the scorer from seeded weights;
              both kernels must have launched, the second pass must be all
              cache hits, the first must match the same weights on the CPU;
+             then a cascade of the two cheaper tiers keeps the priciest
+             marketplace tier as its savings baseline;
   [decode]   the decode-attention kernel against its plain version at
              Gemma's decode shapes (B 1/8/64, cache 16..4096, ragged
              lengths) and on a GQA sweep, timed beside SDPA;
@@ -37,12 +43,18 @@ exits non-zero:
              against their plain versions at the shapes the tier gave
              them (its prefill buckets, its cache lengths);
   [gmm]      the grouped expert matmul against its plain version over a
-             sweep (fp32 and bf16, ragged C / K / F, C from 1 to 320) and
-             at Granite-MoE's prefill and decode shapes, timed beside the
-             plain version and ``torch.bmm``;
+             sweep (fp32 and bf16, every kernel instance, ragged C / K /
+             F, C from 1 to 320, a base pointer off 16 bytes) and at
+             Granite-MoE's prefill and decode shapes, timed back to back
+             and in device time (inputs cycled past L2) beside the plain
+             version and ``torch.bmm``, with the instance each shape took;
+             the two swapped instances forced and timed at C 8;
   [ssd]      the SSD chunked scan against its plain version, y and final
-             state (fp32 and bf16, S a multiple of the chunk and ragged),
-             and at Mamba2-1.3B's shape, timed beside the plain version;
+             state (fp32 and bf16, S a multiple of the chunk and ragged,
+             chunks that fit shared memory in one pass and longer ones,
+             up to 1000, in sub-tiles), and at Mamba2-1.3B's shapes and a
+             Jamba-shaped prefill (chunk 256), timed beside the plain
+             version; both paths forced and timed where both fit;
   [generate-moe], [generate-ssm]
              Granite-3.0-1B-A400M and Mamba2-1.3B at full width and depth
              from seeded weights, as [generate] (a) and (b) run Gemma: fp32
@@ -142,6 +154,40 @@ def _time_ms(fn, reps: int = 20, rounds: int = 7) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fns, reps: int = 20, rounds: int = 7) -> float:
+    """Median over ``rounds`` of CUDA-event time per call of ``reps``
+    calls captured once in a CUDA graph and replayed: the device's time,
+    without the host's enqueue. ``fns`` is one callable or a list that the
+    captured calls cycle through (say, one per copy of the weights, so
+    that they come from HBM and not from L2). Kernel counters are
+    restored: no main path runs here."""
+    import torch
+    fns = fns if isinstance(fns, list) else [fns]
+    counters = {k: c.launches for k, c in _counters().items()}
+    for f in fns[:3]:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    for k, c in _counters().items():
+        c.launches = counters[k]
+    return statistics.median(times)
+
+
 def _agree(out, ref, what: str) -> float:
     """Max abs error of a kernel's output against its plain version on
     the same inputs; raises past the output type's tolerance."""
@@ -199,9 +245,44 @@ def phase_device():
     return name, smi
 
 
+def _ptxas(log: str) -> list[tuple[str, int, int, int, int]]:
+    """(kernel, registers, spill stores, spill loads, static shared bytes)
+    of every entry function in an ``nvcc -Xptxas=-v`` log, names
+    demangled with ``cu++filt`` where the toolkit has it."""
+    import re
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = tuple(int(v) for v in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+        elif "Used" in line and "registers" in line and name:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, regs, *spills, int(smem.group(1)) if smem
+                         else 0))
+            name, spills = None, (0, 0)
+    from repro_torch.kernels._build import _nvcc
+    filt = Path(_nvcc()).parent / "cu++filt"
+    if rows and filt.exists():
+        names = subprocess.run(
+            [str(filt)], input="\n".join(r[0] for r in rows),
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+        rows = [(n.replace("<unnamed>::", ""), *r[1:])
+                for n, r in zip(names, rows)]
+    return rows
+
+
 def phase_build():
+    """Build every kernel; print ptxas's registers, spills and static
+    shared bytes per kernel instance (and the gmm instances' dynamic
+    shared bytes). A spill in the gmm kernels fails the phase."""
+    import ctypes
     from torch.utils.cpp_extension import is_ninja_available
     from repro_torch.kernels._build import BUILD_LOGS, build_all
+    from repro_torch.kernels.moe_gmm.ops import INSTANCES
     t = time.perf_counter()
     libs = build_all()
     took = time.perf_counter() - t
@@ -209,10 +290,57 @@ def phase_build():
           f"(nvcc, one process per source; ninja "
           f"{'present' if is_ninja_available() else 'absent'}): "
           f"{sorted(libs)}")
-    for name, log in sorted(BUILD_LOGS.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    for family, log in sorted(BUILD_LOGS.items()):
+        for name, regs, st, ld, smem in _ptxas(log):
+            print(f"  ptxas {family}: {name}: {regs} registers, spill "
+                  f"stores {st} B / loads {ld} B, {smem} B static shared")
+            if family == "moe_gmm" and (st or ld):
+                raise AssertionError(f"moe_gmm instance {name} spills")
+    smem = ctypes.CDLL(str(libs["moe_gmm"])).repro_moe_gmm_smem
+    print("  moe_gmm dynamic shared bytes: " + ", ".join(
+        f"{n} {smem(i)}" for i, n in enumerate(INSTANCES)))
+
+
+def phase_grad():
+    """Each float kernel wrapper refuses, on the card, an input that
+    requires grad while grad mode is on (its kernel has no backward yet,
+    so its output would carry no gradient), and runs under no_grad."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import gqa_decode
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.moe_gmm.ops import gmm
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    r = lambda *shape: torch.randn(*shape, generator=gen,  # noqa: E731
+                                   device="cuda").requires_grad_()
+    q, k, v = r(2, 16, 4, 64), r(2, 16, 2, 64), r(2, 16, 2, 64)
+    calls = {
+        "mha": lambda: mha(q, k, v),
+        "gqa_decode": lambda: gqa_decode(r(2, 1, 4, 64), k, v, 9),
+        "gmm": lambda: gmm(r(4, 8, 64), r(4, 64, 32)),
+        "ssd_scan": lambda: ssd_scan(
+            r(1, 16, 2, 64), torch.rand(1, 16, 2, device="cuda")
+            .requires_grad_(), -torch.ones(2, device="cuda"), r(1, 16, 32),
+            r(1, 16, 32), chunk=8)}
+    counters = {n: c.launches for n, c in _counters().items()}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as err:
+            if "has no backward" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"{name} ran on inputs that require grad")
+        with torch.no_grad():
+            out = call()
+        if out.grad_fn is not None or not torch.isfinite(out).all():
+            raise AssertionError(f"{name} under no_grad: grad_fn "
+                                 f"{out.grad_fn}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+    for n, c in _counters().items():
+        c.launches = counters[n]
+    print(f"[grad] {', '.join(calls)}: each refuses a CUDA input that "
+          f"requires grad under grad mode and runs under torch.no_grad()")
 
 
 def _qkv(b, s, h, kvh, hd, dtype, gen):
@@ -409,8 +537,10 @@ def phase_serve():
     from repro_torch.core import neural_market as NM
     from repro_torch.core import scorer as SC
     from repro_torch.core.prompt import PromptSpec
+    from repro_torch.data import synthetic
     from repro_torch.models.classifier import init_classifier
-    from repro_torch.serving.builder import assemble_pipeline
+    from repro_torch.serving.builder import (FULL_PROMPT_TOKENS,
+                                             assemble_pipeline)
 
     apis = NM.init_marketplace("headlines", tiers=NM.tier_subset(TIERS),
                                seed=SEED, device="cpu")
@@ -468,6 +598,25 @@ def phase_serve():
     print(f"  vs CPU serve of the same weights: {n_diff} of {len(tokens)} rows "
           f"differ ({int(fragile.sum())} fragile rows within {FRAGILE} of a "
           f"threshold or logit tie); cost identical on agreeing rows")
+
+    # a cascade that drops the marketplace's priciest tier keeps it as the
+    # savings baseline (build_pipeline's rule: the argmax over the whole
+    # marketplace of the offline mean cost, each tier with its own prompt)
+    part = assemble_pipeline(apis, sp, THRESHOLDS[:1], prompts,
+                             cascade=[0, 1], device="cuda", compact="device")
+    res = part.serve(tokens)
+    n_q = (tokens != synthetic.PAD).sum(-1)
+    top = max(range(len(apis)), key=lambda i: float(apis[i].price.query_cost(
+        64 + (prompts[i].n_tokens if prompts[i] else FULL_PROMPT_TOKENS), 1)))
+    want = float(np.asarray(apis[top].price.query_cost(
+        n_q + FULL_PROMPT_TOKENS, np.ones_like(n_q))).sum())
+    if not (top == 2 and part.baseline_price == apis[top].price
+            and res.baseline_cost == want and len(res.tier_counts) == 2):
+        raise AssertionError(f"cascade [0, 1]: baseline {res.baseline_cost} "
+                             f"vs the marketplace's priciest tier's {want}")
+    print(f"  cascade [GPT-J, ChatGPT] of the 3-tier marketplace: savings "
+          f"baseline {apis[top].name}, ${res.baseline_cost:.6f} (by hand "
+          f"${want:.6f}), {100 * res.savings_frac:.1f}% saved")
     return launches
 
 
@@ -980,66 +1129,160 @@ def _serve_twice(pipe, tokens, label):
 
 # Granite-3.0-1B-A400M's expert shapes: E 32, d 1024, d_expert 512; C =
 # b x cap: prefill of 16-token buckets (cap 5) at B = 8 and 64, decode
-# (cap 1) at B = 8 and 64; "gate/up" (K 1024, F 512) and "down" (512, 1024)
+# (cap 1) at B = 8 and 64, and the MoE/SSM serve's prefill bucket of 64
+# rows of 64 tokens (cap 20); "gate/up" (K 1024, F 512) and "down" (512,
+# 1024)
 GMM_TIMED = [(f"{kind} {phase} B={b}", c, k, f)
              for phase, b, c in (("decode", 8, 8), ("decode", 64, 64),
-                                 ("prefill", 8, 40), ("prefill", 64, 320))
+                                 ("prefill", 8, 40), ("prefill", 64, 320),
+                                 ("serve prefill S=64", 64, 1280))
              for kind, k, f in (("gate/up", 1024, 512), ("down", 512, 1024))]
+# the masked scalar-load instance at a prefill-sized shape (K, F no
+# multiple of 8)
+GMM_TIMED_UNALIGNED = [("unaligned K 1020 F 516", 40, 1020, 516)]
+# the two swapped-operand instances that can run a decode group of C 8,
+# timed against each other at Granite's C 8 shapes
+GMM_SWAPPED = ("bf16_tc_swap_c8", "bf16_tc_swap_c16")
+# the sweep: every instance (C <= 8 and <= 16 swapped, 64 x 128 and
+# 128 x 128 tiles, masked scalar loads), ragged C / K / F, C 1 to 320
+GMM_SWEEP = ((32, 1, 1024, 512), (32, 8, 1024, 512), (32, 8, 512, 1024),
+             (32, 13, 1024, 512), (32, 16, 512, 1024), (32, 40, 1024, 512),
+             (32, 64, 512, 1024), (32, 127, 1024, 512), (32, 128, 512, 1024),
+             (32, 320, 1024, 512), (3, 77, 33, 130), (2, 33, 100, 65),
+             (5, 200, 72, 40), (1, 7, 5, 3), (4, 5, 24, 1000),
+             (2, 300, 1000, 24))
+# copies of a timed row's inputs that the timed calls cycle through, more
+# bytes than the 50 MB L2 holds, so that each call reads them from HBM as
+# the model's layers do
+COLD_BYTES = 100e6
 
 
 def phase_gmm():
     """The grouped matmul against its plain version on a sweep (fp32 and
-    bf16, ragged C / K / F, C from 1 to 320), then at Granite's own
-    shapes, timed beside the plain version and ``torch.bmm``."""
+    bf16, every kernel instance, ragged C / K / F, a base pointer off 16
+    bytes), then at Granite's own shapes and one unaligned shape, timed
+    beside the plain version and ``torch.bmm``."""
     import torch
-    from repro_torch.kernels.moe_gmm.ops import gmm, gmm_reference
+    from repro_torch.kernels.moe_gmm.ops import INSTANCES, gmm, gmm_reference
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    worst, n_checks = 0.0, 0
+    worst, n_checks, taken = 0.0, 0, {}
+    before = gmm.launches
     for dtype in (torch.float32, torch.bfloat16):
-        for e, c, k, f in ((32, 1, 1024, 512), (32, 8, 1024, 512),
-                           (32, 8, 512, 1024), (32, 40, 1024, 512),
-                           (32, 64, 512, 1024), (32, 320, 1024, 512),
-                           (3, 77, 33, 130), (2, 33, 100, 65),
-                           (5, 200, 72, 40), (1, 7, 5, 3)):
-            x = torch.randn(e, c, k, generator=gen, device="cuda").to(dtype)
+        for (e, c, k, f), offset in [(shape, 0) for shape in GMM_SWEEP] + [
+                ((32, 40, 1024, 512), 1), ((32, 8, 1024, 512), 1)]:
+            # offset 1: x starts one element past an aligned address
+            buf = torch.randn(e * c * k + offset, generator=gen,
+                              device="cuda").to(dtype)
+            x = buf[offset:].view(e, c, k)
             w = torch.randn(e, k, f, generator=gen, device="cuda").to(dtype)
-            err = _agree_rel(gmm(x, w), gmm_reference(x, w),
-                             f"moe_gmm at E={e} C={c} K={k} F={f} {dtype}")
+            what = (f"moe_gmm at E={e} C={c} K={k} F={f} {dtype}"
+                    f"{' x off 16 B' if offset else ''}")
+            err = _agree_rel(gmm(x, w), gmm_reference(x, w), what)
+            taken.setdefault(gmm.last_instance, []).append(
+                f"{c}x{k}x{f}{'+1' if offset else ''}")
             if dtype == torch.float32:
                 worst = max(worst, err)
             n_checks += 1
+    gmm.launches = before
     print(f"[gmm] {n_checks} shapes agree with the plain version (fp32 max "
           f"abs err {worst:.3e}; fp32 <= {FP32_REL} x max|plain|, bf16 <= "
           f"{BF16_REL} x max|plain|)")
-    rows = [_gmm_row(label, 32, c, k, f) for label, c, k, f in GMM_TIMED]
-    return {**rows[0], "sweep_fp32_max_abs_err": worst, "granite": rows}
+    for name in INSTANCES:
+        print(f"  instance {name}: {taken.get(name, [])}")
+    if set(taken) != set(INSTANCES):
+        raise AssertionError(f"the sweep missed instances "
+                             f"{set(INSTANCES) - set(taken)}")
+    rows = gmm_timed_rows(GMM_TIMED + GMM_TIMED_UNALIGNED)
+    swapped = [_gmm_instance_times(label, 32, c, k, f)
+               for label, c, k, f in GMM_TIMED if c <= 8]
+    return {**rows[0], "sweep_fp32_max_abs_err": worst,
+            "sweep_instances": {n: len(v) for n, v in taken.items()},
+            "granite": rows, "swapped_at_c8": swapped}
+
+
+def gmm_timed_rows(shapes=GMM_TIMED):
+    """``_gmm_row`` at each (label, C, K, F) of ``shapes``, E 32. It calls
+    ``gmm`` and ``gmm_reference`` alone, so it times any version of the
+    package that is first on ``sys.path``: run it on a ``git archive`` of
+    an earlier commit and on the tree, in turns, in one call, to compare
+    the two by the same method."""
+    return [_gmm_row(label, 32, c, k, f) for label, c, k, f in shapes]
+
+
+def _gmm_inputs(e, c, k, f):
+    """Copies of bf16 (x, w) at one shape, w scaled as Granite's weights,
+    enough that cycling through them reads more than L2 holds."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + c + k)
+    nbytes = 2 * (e * c * k + e * k * f + e * c * f)
+    return [(torch.randn(e, c, k, generator=gen, device="cuda").bfloat16(),
+             (0.02 * torch.randn(e, k, f, generator=gen, device="cuda"))
+             .bfloat16())
+            for _ in range(max(1, math.ceil(COLD_BYTES / nbytes)))], nbytes
 
 
 def _gmm_row(label, e, c, k, f):
-    """Check the grouped matmul at one of Granite's shapes (bf16) and time
-    it beside the plain version and ``torch.bmm`` on the same inputs.
-    Restores the launch counter: none of this is a main path."""
+    """Check the grouped matmul at one of Granite's shapes (bf16), then
+    time it beside the plain version and ``torch.bmm`` on the same inputs,
+    two ways: ``ms`` as every kernel's (back-to-back calls on one warm set
+    of inputs, the host's enqueue included), and ``device_ms`` (a CUDA
+    graph of calls cycling through copies that overflow L2, as the model's
+    layers read their weights). Restores the launch counter: none of this
+    is a main path."""
     import torch
     from repro_torch.kernels.moe_gmm.ops import gmm, gmm_reference
-    gen = torch.Generator(device="cuda").manual_seed(SEED + c + k)
-    x = torch.randn(e, c, k, generator=gen, device="cuda").bfloat16()
-    w = (0.02 * torch.randn(e, k, f, generator=gen, device="cuda")).bfloat16()
+    copies, nbytes = _gmm_inputs(e, c, k, f)
+    x, w = copies[0]
     before = gmm.launches
     err = _agree_rel(gmm(x, w), gmm_reference(x, w),
                      f"moe_gmm at Granite's {label}")
+    # an earlier version of the wrapper may not report its instance
+    instance = getattr(gmm, "last_instance", None)
     ms = _time_ms(lambda: gmm(x, w))
+    dev = _device_ms([lambda x=x, w=w: gmm(x, w) for x, w in copies])
     gmm.launches = before
     plain = _time_ms(lambda: gmm_reference(x, w))
+    plain_dev = _device_ms([lambda x=x, w=w: gmm_reference(x, w)
+                            for x, w in copies])
     lib = _time_ms(lambda: torch.bmm(x, w))
-    bound, by = _bound(2 * (e * c * k + e * k * f + e * c * f),
-                       2 * e * c * k * f, "bfloat16")
+    lib_dev = _device_ms([lambda x=x, w=w: torch.bmm(x, w)
+                          for x, w in copies])
+    bound, by = _bound(nbytes, 2 * e * c * k * f, "bfloat16")
     row = {"shape": f"{label}: E={e} C={c} K={k} F={f} bf16",
-           "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+           "instance": instance, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain, "library_ms": lib, "device_ms": dev,
+           "plain_device_ms": plain_dev, "library_device_ms": lib_dev,
            "bound_ms": bound, "bound_by": by}
-    print(f"  gmm {row['shape']}: max abs err {err:.2e} | kernel {ms:.4f} ms "
-          f"| plain {plain:.4f} ms | bmm {lib:.4f} ms | bound {bound:.4f} ms "
-          f"({by})")
+    print(f"  gmm {row['shape']} [{instance}]: max abs err {err:.2e} | "
+          f"back-to-back: kernel {ms:.4f} ms, plain {plain:.4f} ms, bmm "
+          f"{lib:.4f} ms (kernel / bmm {ms / lib:.2f}, faster than plain "
+          f"{'yes' if ms < plain else 'NO'}) | device, L2 cold: kernel "
+          f"{dev:.4f} ms, plain {plain_dev:.4f} ms, bmm {lib_dev:.4f} ms "
+          f"(kernel / bmm {dev / lib_dev:.2f}) | bound {bound:.4f} ms ({by})")
     return row
+
+
+def _gmm_instance_times(label, e, c, k, f):
+    """Each of GMM_SWAPPED forced at one decode shape: checked against the
+    plain version, timed both ways as in ``_gmm_row``."""
+    from repro_torch.kernels.moe_gmm.ops import gmm, gmm_reference
+    copies, _ = _gmm_inputs(e, c, k, f)
+    x, w = copies[0]
+    before, times = gmm.launches, {}
+    for name in GMM_SWAPPED:
+        _agree_rel(gmm(x, w, instance=name), gmm_reference(x, w),
+                   f"moe_gmm instance {name} at Granite's {label}")
+        times[name] = {
+            "ms": _time_ms(lambda: gmm(x, w, instance=name)),
+            "device_ms": _device_ms([
+                lambda x=x, w=w: gmm(x, w, instance=name)
+                for x, w in copies])}
+    gmm.launches = before
+    print(f"  gmm {label} C={c} K={k} F={f}, each swapped instance forced: "
+          + " | ".join(f"{n} {t['ms']:.4f} ms back-to-back, "
+                       f"{t['device_ms']:.4f} ms device"
+                       for n, t in times.items()))
+    return {"shape": f"{label}: E={e} C={c} K={k} F={f} bf16", **times}
 
 
 # -- kernel 5: the SSD chunked scan ----------------------------------------
@@ -1056,25 +1299,42 @@ def _ssd_inputs(b, s, h, p, n, dtype, gen):
             mk(b, s, n).to(dtype))
 
 
+# (B, S, H, P, N, chunk) of the sweep: S a multiple of the chunk and
+# ragged; chunks that fit shared memory whole (single pass) and longer
+# ones (sub-tiled: 256 as in SSMCfg's default and Jamba, at S = 300 and
+# 600, in either type, and 1000), and chunks on either side of a sub-tile
+# (64 rows in fp32, 128 in bf16: 65, 129)
+SSD_SWEEP = ((1, 64, 2, 32, 16, 32), (2, 256, 4, 64, 32, 64),
+             (2, 77, 3, 32, 16, 32), (8, 13, 64, 64, 128, 13),
+             (1, 300, 64, 64, 128, 128), (2, 256, 8, 64, 128, 128),
+             (3, 1, 4, 64, 128, 128), (2, 200, 4, 64, 128, 65),
+             (2, 200, 4, 64, 128, 129), (1, 300, 64, 64, 128, 256),
+             (1, 600, 64, 64, 128, 256), (1, 1000, 8, 64, 128, 1000))
+# (B, S, chunk, type) at Mamba2-1.3B's H, P, N where both paths can run,
+# each forced and timed: the chunk of a sub-tile in either type, and
+# Mamba2's chunk in fp32 (the card's fp32 generation runs it)
+SSD_BOTH_PATHS = ((1, 300, 128, "bfloat16"), (1, 300, 64, "float32"),
+                  (1, 300, 128, "float32"))
+
+
 def phase_ssd():
     """The SSD scan against its plain version, y and final state, on a
-    sweep (fp32 and bf16; S a multiple of the chunk and ragged) and at
-    Mamba2-1.3B's shape (H 64, P 64, N 128, chunk 128), timed."""
+    sweep (fp32 and bf16; S a multiple of the chunk and ragged; both
+    kernel paths, chunk 256 at S = 300 and 600) and at Mamba2-1.3B's and
+    a Jamba-shaped prefill, timed."""
     import torch
-    from repro_torch.kernels.ssd_scan.ops import ssd_reference, ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import (PATHS, ssd_reference,
+                                                  ssd_scan)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    worst, n_checks = 0.0, 0
+    worst, n_checks, taken = 0.0, 0, {}
+    before = ssd_scan.launches
     for dtype in (torch.float32, torch.bfloat16):
-        for b, s, h, p, n, chunk in ((1, 64, 2, 32, 16, 32),
-                                     (2, 256, 4, 64, 32, 64),
-                                     (2, 77, 3, 32, 16, 32),
-                                     (8, 13, 64, 64, 128, 13),
-                                     (1, 300, 64, 64, 128, 128),
-                                     (2, 256, 8, 64, 128, 128),
-                                     (3, 1, 4, 64, 128, 128)):
+        for b, s, h, p, n, chunk in SSD_SWEEP:
             args = _ssd_inputs(b, s, h, p, n, dtype, gen)
             what = f"ssd_scan at B={b} S={s} H={h} P={p} N={n} chunk={chunk}"
             y, state = ssd_scan(*args, chunk=chunk, return_state=True)
+            taken.setdefault((str(dtype)[6:], ssd_scan.last_path),
+                             set()).add(min(chunk, s))
             ry, rstate = ssd_reference(*args, chunk=min(chunk, s))
             err = _agree_rel(y, ry, f"{what} {dtype}, y")
             # the state is fp32 on both sides, whatever the input type
@@ -1082,20 +1342,53 @@ def phase_ssd():
             if dtype == torch.float32:
                 worst = max(worst, err)
             n_checks += 1
+            del args, y, state, ry, rstate
+    ssd_scan.launches = before
+    by_path = " ".join(f"{t}/{p} {sorted(c)}" for (t, p), c in taken.items())
     print(f"[ssd] {n_checks} shapes agree with the plain version, y and "
           f"final state (fp32 max abs err {worst:.3e}; fp32 <= {FP32_REL} x "
-          f"max|plain|, bf16 y <= {BF16_REL} x max|plain|)")
+          f"max|plain|, bf16 y <= {BF16_REL} x max|plain|); chunks by type "
+          f"and path: {by_path}")
+    if {p for _, p in taken} != set(PATHS) or len(taken) != 2 * len(PATHS):
+        raise AssertionError(f"a kernel path never ran: {set(taken)}")
     rows = [_ssd_row(b, s) for b, s in ((8, 13), (64, 13), (1, 300),
                                         (64, 64))]
+    jamba = _ssd_row(1, 300, h=128, chunk=256, tag="Jamba-shaped ")
+    both = [_ssd_path_times(*shape) for shape in SSD_BOTH_PATHS]
     return {**rows[0], "sweep_fp32_max_abs_err": worst, "library_ms": None,
-            "mamba2": rows}
+            "mamba2": rows, "jamba": jamba, "both_paths": both}
 
 
-def _ssd_row(b, s, h=64, p=64, n=128, chunk=128):
+def _ssd_path_times(b, s, chunk, dtype_name, h=64, p=64, n=128):
+    """Each path forced at one chunk that both can run: checked against
+    the plain version (y and state), timed as in ``_ssd_row``."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import (PATHS, ssd_reference,
+                                                  ssd_scan)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + b + s)
+    args = _ssd_inputs(b, s, h, p, n, getattr(torch, dtype_name), gen)
+    ry, rstate = ssd_reference(*args, chunk=chunk)
+    before, times = ssd_scan.launches, {}
+    for path in PATHS:
+        what = f"ssd_scan path {path} at B={b} S={s} chunk={chunk}"
+        y, state = ssd_scan(*args, chunk=chunk, return_state=True, path=path)
+        _agree_rel(y, ry, f"{what} {dtype_name}, y")
+        _agree_rel(state, rstate, f"{what} {dtype_name}, final state")
+        times[path] = _time_ms(lambda: ssd_scan(
+            *args, chunk=chunk, return_state=True, path=path))
+    ssd_scan.launches = before
+    shape = f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} {dtype_name}"
+    print(f"  ssd {shape}, each path forced: " + " | ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()))
+    return {"shape": shape, **{f"{k}_ms": v for k, v in times.items()}}
+
+
+def _ssd_row(b, s, h=64, p=64, n=128, chunk=128, tag=""):
     """Check the SSD scan at Mamba2-1.3B's shape for a (B, S) prefill
-    (bf16, dt fp32) and time it beside the plain version. No single
-    PyTorch call computes this function, so there is no library time.
-    Restores the launch counter: none of this is a main path."""
+    (bf16, dt fp32), or another model's with ``h`` / ``chunk``, and time
+    it beside the plain version. No single PyTorch call computes this
+    function, so there is no library time. Restores the launch counter:
+    none of this is a main path."""
     import torch
     from repro_torch.kernels.ssd_scan.ops import ssd_reference, ssd_scan
     gen = torch.Generator(device="cuda").manual_seed(SEED + b + s)
@@ -1103,9 +1396,10 @@ def _ssd_row(b, s, h=64, p=64, n=128, chunk=128):
     q = min(chunk, s)
     before = ssd_scan.launches
     y, state = ssd_scan(*args, chunk=q, return_state=True)
+    path = ssd_scan.last_path
     ry, rstate = ssd_reference(*args, chunk=q)
-    err = _agree_rel(y, ry, f"ssd_scan at Mamba2's B={b} S={s}")
-    _agree_rel(state, rstate, f"ssd_scan at Mamba2's B={b} S={s}, state")
+    err = _agree_rel(y, ry, f"ssd_scan at {tag}B={b} S={s} H={h}")
+    _agree_rel(state, rstate, f"ssd_scan at {tag}B={b} S={s} H={h}, state")
     ms = _time_ms(lambda: ssd_scan(*args, chunk=q, return_state=True))
     ssd_scan.launches = before
     plain = _time_ms(lambda: ssd_reference(*args, chunk=q))
@@ -1119,12 +1413,12 @@ def _ssd_row(b, s, h=64, p=64, n=128, chunk=128):
                       + h * (pairs * 2 * p               # M (x dt)
                              + 2 * ell * 2 * p * n))     # C.state, state upd
     bound, by = _bound(nbytes, flops, "bfloat16")
-    row = {"shape": f"B={b} S={s} H={h} P={p} N={n} chunk={q} bf16",
-           "max_abs_err": err, "ms": ms, "plain_ms": plain,
+    row = {"shape": f"{tag}B={b} S={s} H={h} P={p} N={n} chunk={q} bf16",
+           "path": path, "max_abs_err": err, "ms": ms, "plain_ms": plain,
            "library_ms": None, "bound_ms": bound, "bound_by": by}
-    print(f"  ssd {row['shape']}: max abs err {err:.2e} | kernel {ms:.4f} ms "
-          f"| plain {plain:.4f} ms | no library call | bound {bound:.5f} ms "
-          f"({by})")
+    print(f"  ssd {row['shape']} [{path}]: max abs err {err:.2e} | kernel "
+          f"{ms:.4f} ms | plain {plain:.4f} ms | no library call | bound "
+          f"{bound:.5f} ms ({by})")
     return row
 
 
@@ -1243,6 +1537,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kind, smi = phase_device()
     phase_build()
+    phase_grad()
     flash = phase_flash()
     comp = phase_compact()
     serve_launches = phase_serve()

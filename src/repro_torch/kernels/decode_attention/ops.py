@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256          # the CUDA kernel's limit
 #: keys per split at least; the split count fills ~2 blocks per SM
@@ -100,6 +102,7 @@ def gqa_decode(q, k, v, length: int):
     if q.device.type != "cuda":
         raise ValueError(f"gqa_decode runs on cuda or cpu tensors, got "
                          f"{q.device}")
+    refuse_grad("gqa_decode", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("gqa_decode's CUDA kernel needs contiguous q/k/v")
     b, _, h, hd = q.shape

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256          # the CUDA kernel's limit
 
@@ -87,6 +89,7 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0):
         return mha_reference(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"mha runs on cuda or cpu tensors, got {q.device}")
+    refuse_grad("mha", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("mha's CUDA kernel needs contiguous q/k/v")
     b, s, h, hd = q.shape

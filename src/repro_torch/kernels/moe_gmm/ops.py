@@ -13,6 +13,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._grad import refuse_grad
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -36,6 +38,12 @@ def gmm_reference(x, w):
 
 
 _FN = None
+#: the instances ``moe_gmm.cu`` launches, by the code it reports:
+#: fp32 on CUDA cores; bf16 on tensor cores with the operands swapped
+#: (C <= 8, C <= 16), with 64 x 128 or 128 x 128 tiles, and with masked
+#: scalar loads for K or F not a multiple of 8 or unaligned pointers
+INSTANCES = ("fp32_cuda_cores", "bf16_tc_swap_c8", "bf16_tc_swap_c16",
+             "bf16_tc_64x128", "bf16_tc_128x128", "bf16_tc_64x128_scalar")
 
 
 def _kernel():
@@ -44,36 +52,51 @@ def _kernel():
         from repro_torch.kernels._build import library
         fn = library("moe_gmm").repro_moe_gmm
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
+        fn.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp,
+                       ctypes.POINTER(i32)]
         fn.restype = i32
         _FN = fn
     return _FN
 
 
-def gmm(x, w):
+def gmm(x, w, *, instance: str | None = None):
     """x: (E, C, K); w: (E, K, F) -> (E, C, F) = x[e] @ w[e] per expert,
     accumulated in fp32 and returned in x's dtype. Any C, K, F (no block
-    multiple). CUDA tensors must be contiguous, float32 or bfloat16."""
+    multiple). CUDA tensors must be contiguous, float32 or bfloat16;
+    ``gmm.last_instance`` then names the kernel instance that ran
+    (``INSTANCES``). ``instance`` forces a bf16 instance by name where it
+    can run the shape, to time instances against each other (the kernel
+    refuses one that cannot); None chooses it from the shape. The CPU
+    runs the plain version whatever it names."""
     _check(x, w)
+    if instance is not None and instance not in INSTANCES[1:]:
+        raise ValueError(f"instance must be one of {INSTANCES[1:]}, got "
+                         f"{instance!r}")
     if x.device.type == "cpu":
         return gmm_reference(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"gmm runs on cuda or cpu tensors, got {x.device}")
+    refuse_grad("gmm", x, w)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("gmm's CUDA kernel needs contiguous x/w")
     e, c, k = x.shape
     f = w.shape[2]
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)
+    taken = ctypes.c_int(-1 if instance is None
+                         else INSTANCES.index(instance))
     rc = _kernel()(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, k, f,
                    _DTYPES[x.dtype],
-                   torch.cuda.current_stream(x.device).cuda_stream)
+                   torch.cuda.current_stream(x.device).cuda_stream,
+                   ctypes.byref(taken))
     if rc:
         raise RuntimeError(f"moe_gmm launch failed: CUDA error {rc}")
     gmm.launches += 1
+    gmm.last_instance = INSTANCES[taken.value]
     return out
 
 
 gmm.launches = 0
+gmm.last_instance = None
 
 
 def expert_mlp(x, w_gate, w_up, w_down):

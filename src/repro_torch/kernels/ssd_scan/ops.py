@@ -14,6 +14,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: dynamic shared memory one block may use on an H100 (227 KB)
 MAX_SMEM = 232_448
@@ -91,6 +93,10 @@ def ssd_reference(x, dt, a, bm, cm, *, chunk: int, init_state=None):
 
 _FN = None
 _SMEM = None
+#: the kernel's paths, by the code it reports: a chunk whose B, C and x fit
+#: shared memory in one pass (up to 253 steps in bf16, 139 in fp32 at P 64,
+#: N 128), a longer one in sub-tiles
+PATHS = ("single_pass", "sub_tiled")
 
 
 def _kernel():
@@ -100,7 +106,7 @@ def _kernel():
         lib = library("ssd_scan")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         fn = lib.repro_ssd_scan
-        fn.argtypes = [vp] * 7 + [i32] * 7 + [vp]
+        fn.argtypes = [vp] * 7 + [i32] * 7 + [vp, ctypes.POINTER(i32)]
         fn.restype = i32
         smem = lib.repro_ssd_scan_smem
         smem.argtypes = [i32] * 4
@@ -109,21 +115,30 @@ def _kernel():
     return _FN, _SMEM
 
 
-def ssd_scan(x, dt, a, bm, cm, *, chunk: int, return_state: bool = False):
+def ssd_scan(x, dt, a, bm, cm, *, chunk: int, return_state: bool = False,
+             path: str | None = None):
     """y = SSD(x * dt) without the D term, chunk by chunk of ``chunk``
     steps; with ``return_state`` also the fp32 state after the last token,
     (B, H, P, N). x (B, S, H, P), dt (B, S, H), a (H,) < 0, bm/cm (B, S, N);
-    any S (a ragged last chunk runs its true rows only). dt and a are
-    taken in fp32. CUDA tensors x/bm/cm must be contiguous, float32 or
-    bfloat16, and fit the kernel's shared memory (chunk, P, N up to
-    Mamba2-1.3B's 128, 64, 128 in either type)."""
+    any S (a ragged last chunk runs its true rows only) and any chunk
+    length. dt and a are taken in fp32. CUDA tensors x/bm/cm must be
+    contiguous, float32 or bfloat16, with a head dim P and state N whose
+    tiles fit the kernel's shared memory (P 64, N 128 do in either type);
+    ``ssd_scan.last_path`` then names the path the kernel took
+    (``PATHS``). ``path`` forces one of ``PATHS`` where its tiles fit, to
+    time the two against each other (the kernel refuses one that does
+    not); None chooses it from the shared memory the chunk needs. The CPU
+    runs the plain version whatever it names."""
     _check(x, dt, a, bm, cm, chunk)
+    if path is not None and path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
     if x.device.type == "cpu":
         y, state = ssd_reference(x, dt, a, bm, cm, chunk=chunk)
         return (y, state) if return_state else y
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors, got "
                          f"{x.device}")
+    refuse_grad("ssd_scan", x, dt, a, bm, cm)
     if not (x.is_contiguous() and bm.is_contiguous() and cm.is_contiguous()):
         raise ValueError("ssd_scan's CUDA kernel needs contiguous x/bm/cm")
     b, s, h, p = x.shape
@@ -132,24 +147,28 @@ def ssd_scan(x, dt, a, bm, cm, *, chunk: int, return_state: bool = False):
     fn, smem = _kernel()
     need = smem(q, p, n, _DTYPES[x.dtype])
     if need > MAX_SMEM:
-        raise ValueError(f"chunk {q}, P {p}, N {n} in {x.dtype} need {need} "
-                         f"bytes of shared memory > {MAX_SMEM}")
+        raise ValueError(f"head dim P {p} and state N {n} in {x.dtype} need "
+                         f"{need} bytes of shared memory > {MAX_SMEM}")
     dt = dt.float().contiguous()
     a = a.float().contiguous()
     y = torch.empty_like(x)
     state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
              if return_state else None)
+    taken = ctypes.c_int(-1 if path is None else PATHS.index(path))
     rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
             cm.data_ptr(), y.data_ptr(),
             None if state is None else state.data_ptr(), b, s, h, p, n, q,
-            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+            ctypes.byref(taken))
     if rc:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
     ssd_scan.launches += 1
+    ssd_scan.last_path = PATHS[taken.value]
     return (y, state) if return_state else y
 
 
 ssd_scan.launches = 0
+ssd_scan.last_path = None
 
 
 def ssd(x, dt, a, bm, cm, d=None, *, chunk: int,

@@ -128,3 +128,64 @@ def test_entry_point_without_card_raises(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         _entry_points()[name]()
+
+
+def _grad_calls(device):
+    """name -> call of each float kernel wrapper on small inputs made on
+    ``device``, each input requiring grad."""
+    from repro_torch.kernels.decode_attention.ops import gqa_decode
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.moe_gmm.ops import gmm
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, fn=None):
+        t = torch.randn(*shape, generator=g)
+        return (t if fn is None else fn(t)).to(device).requires_grad_()
+
+    q, k, v = r(2, 5, 4, 8), r(2, 5, 2, 8), r(2, 5, 2, 8)
+    dt = r(1, 6, 2, fn=torch.nn.functional.softplus)
+    a = r(2, fn=lambda t: -torch.exp(t))
+    ssd_in = (r(1, 6, 2, 4), dt, a, r(1, 6, 3), r(1, 6, 3))
+    return {"mha": lambda: mha(q, k, v),
+            "gqa_decode": lambda: gqa_decode(r(2, 1, 4, 8), k, v, 4),
+            "gmm": lambda: gmm(r(2, 3, 4), r(2, 4, 5)),
+            "ssd_scan": lambda: ssd_scan(*ssd_in, chunk=4)}
+
+
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "no_requires_grad",
+                                  "integer"])
+def test_refuse_grad(mode):
+    from repro_torch.kernels._grad import refuse_grad
+    x = torch.ones(3, requires_grad=mode != "no_requires_grad")
+    if mode == "integer":
+        x = torch.ones(3, dtype=torch.int32)
+    if mode == "grad":
+        with pytest.raises(RuntimeError, match="k: its CUDA kernel has no "
+                                               "backward"):
+            refuse_grad("k", torch.zeros(2), x)
+    elif mode == "no_grad":
+        with torch.no_grad():
+            refuse_grad("k", x)
+    else:
+        refuse_grad("k", x)
+
+
+@pytest.mark.parametrize("name", ["mha", "gqa_decode", "gmm", "ssd_scan"])
+def test_cpu_wrappers_still_differentiate(name):
+    """On the CPU a wrapper runs its plain version, which autograd
+    differentiates: the output carries a grad_fn and backward runs."""
+    out = _grad_calls("cpu")[name]()
+    assert out.grad_fn is not None
+    out.float().square().sum().backward()
+
+
+@pytest.mark.parametrize("name", ["mha", "gqa_decode", "gmm", "ssd_scan"])
+def test_cuda_wrappers_refuse_grad_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the guard sits in the CUDA branch")
+    call = _grad_calls("cuda")[name]
+    with pytest.raises(RuntimeError, match=f"{name}: its CUDA kernel"):
+        call()
+    with torch.no_grad():
+        assert call().grad_fn is None

@@ -228,11 +228,51 @@ def test_padding_never_takes_a_real_tokens_slot():
 
 
 def test_gmm_kernel_matches_plain_version_on_card():
+    """fp32 on CUDA cores within 1e-5 x max|ref|; bf16 on every
+    tensor-core instance (swapped at C <= 8 and <= 16, 64 x 128 and
+    128 x 128 tiles, masked scalar loads for K or F off a multiple of 8)
+    within one bf16 rounding, 1e-2 x max|ref|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for e, c, k, f in ((32, 8, 1024, 512), (32, 40, 512, 1024),
-                       (3, 77, 33, 130)):
-        x = torch.from_numpy(_rand((e, c, k), c)).cuda()
-        w = torch.from_numpy(_rand((e, k, f), k)).cuda()
-        got, ref = gmm(x, w), gmm_reference(x, w)
-        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    from repro_torch.kernels.moe_gmm.ops import INSTANCES
+    taken = set()
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for e, c, k, f in ((32, 8, 1024, 512), (32, 13, 1024, 512),
+                           (32, 40, 512, 1024), (32, 320, 1024, 512),
+                           (3, 77, 33, 130), (1, 7, 5, 3)):
+            x = torch.from_numpy(_rand((e, c, k), c)).cuda().to(dtype)
+            w = torch.from_numpy(_rand((e, k, f), k)).cuda().to(dtype)
+            got, ref = gmm(x, w).float(), gmm_reference(x, w).float()
+            taken.add(gmm.last_instance)
+            assert (got - ref).abs().max().item() <= \
+                rel * ref.abs().max().item()
+    assert taken == set(INSTANCES)
+
+
+def test_gmm_instance_names_a_bf16_instance():
+    """``instance`` takes a bf16 instance's name or None; the CPU runs the
+    plain version whatever it names."""
+    from repro_torch.kernels.moe_gmm.ops import INSTANCES
+    x = torch.from_numpy(_rand((2, 8, 16), 1))
+    w = torch.from_numpy(_rand((2, 16, 24), 2))
+    for name in (None, *INSTANCES[1:]):
+        assert torch.equal(gmm(x, w, instance=name), gmm_reference(x, w))
+    for name in ("fp32_cuda_cores", "bf16"):
+        with pytest.raises(ValueError, match="instance must be one of"):
+            gmm(x, w, instance=name)
+
+
+def test_gmm_swapped_instances_agree_at_decode_on_card():
+    """Both swapped-operand instances forced at Granite's decode group of
+    C 8 agree with the plain version within 1e-2 x max|ref| (bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    for k, f in ((1024, 512), (512, 1024)):
+        x = torch.from_numpy(_rand((32, 8, k), k)).cuda().bfloat16()
+        w = torch.from_numpy(_rand((32, k, f), f, 0.02)).cuda().bfloat16()
+        ref = gmm_reference(x, w).float()
+        for name in ("bf16_tc_swap_c8", "bf16_tc_swap_c16"):
+            got = gmm(x, w, instance=name).float()
+            assert gmm.last_instance == name
+            assert (got - ref).abs().max().item() <= \
+                1e-2 * ref.abs().max().item()

@@ -8,6 +8,7 @@ of a threshold and that no tier's top-2 logit margin is under 1e-4, so
 fp32 noise between XLA and torch cannot flip a row: answers, costs,
 ``stopped_at``, tier counts and cache hits must then be identical.
 """
+import dataclasses
 import functools
 
 import jax
@@ -139,6 +140,61 @@ def test_serve_matches_jax(market, compact):
         else:
             assert got.cache_hit_rate == 1.0 and not any(got.tier_counts)
     assert "served 96 queries" in got.summary()
+
+
+def test_baseline_is_the_marketplaces_priciest_tier(market):
+    """A cascade that drops the marketplace's priciest tier keeps it as
+    the savings baseline, as ``build_pipeline`` does
+    (``repro/serving/builder.py:378-380``): the argmax over the whole
+    marketplace of the offline mean cost, each tier with its own prompt,
+    not the cascade's last tier."""
+    tapis, toks = market["tapis"], market["toks"]
+    prompts = [PromptSpec(*p) if p else None for p in PROMPTS]
+    # the reference's rule by hand: mean offline cost per marketplace tier
+    n_q = (toks != synthetic.PAD).sum(-1)
+    mean_cost = [np.asarray(a.price.query_cost(
+        n_q + (p.n_tokens if p else FULL_PROMPT_TOKENS), np.ones_like(n_q)),
+        np.float64).mean() for a, p in zip(tapis, prompts)]
+    top = int(np.argmax(mean_cost))
+    assert top == 2 and tapis[2].price != tapis[1].price
+    tpipe = assemble_pipeline(tapis, market["tsp"], market["thresholds"][:1],
+                              prompts, cascade=[0, 1], device="cpu")
+    assert [t.name for t in tpipe.tiers] == list(NAMES[:2])
+    assert tpipe.baseline_price == tapis[top].price
+    got = tpipe.serve(toks)
+    baseline = float(np.asarray(tapis[top].price.query_cost(
+        n_q + FULL_PROMPT_TOKENS, np.ones_like(n_q))).sum())
+    assert got.baseline_cost == baseline
+    assert got.savings_frac == 1.0 - float(got.cost.sum()) / baseline
+    # the same two-tier cascade in the JAX package, baseline by its rule
+    jtiers = [JTierSpec(a.name, a.answer, a.price,
+                        prompt=JPromptSpec(*p) if p else None)
+              for a, p in zip(market["japis"][:2], PROMPTS)]
+    jpipe = JServingPipeline(
+        tiers=jtiers, thresholds=market["thresholds"][:1],
+        scorer=lambda t, a: JSC.score(market["jsp"], t, a),
+        cache=JCompletionCache(capacity=1024, threshold=0.995),
+        embed=functools.partial(jax_embed_queries, market["jsp"],
+                                cfg=JSC.SCORER_CFG),
+        full_prompt_tokens=FULL_PROMPT_TOKENS, pad_token=synthetic.PAD,
+        baseline_price=market["japis"][top].price)
+    ref = jpipe.serve(toks)
+    assert np.array_equal(got.cost, ref.cost)
+    assert got.tier_counts == ref.tier_counts
+    assert got.baseline_cost == ref.baseline_cost
+    assert got.savings_frac == ref.savings_frac
+    # the cascade's own last tier would have been a cheaper baseline
+    last = dataclasses.replace(tpipe, baseline_price=tapis[1].price)
+    assert got.baseline_cost > last._baseline_cost(toks)
+
+
+@pytest.mark.parametrize("cascade", [[], [0, 3], [-1]])
+def test_assemble_pipeline_refuses_a_cascade_outside_the_market(market,
+                                                                cascade):
+    with pytest.raises(ValueError, match="cascade"):
+        assemble_pipeline(market["tapis"], market["tsp"], [],
+                          [None] * len(market["tapis"]), cascade=cascade,
+                          device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [np.float16, np.float32, np.float64])

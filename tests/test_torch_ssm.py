@@ -65,7 +65,7 @@ def _inputs(b, s, h, p, n, seed):
 SWEEP = [(1, 64, 2, 32, 16, 32), (2, 128, 4, 32, 16, 32),
          (1, 256, 2, 64, 32, 64)]
 RAGGED = [(2, 77, 3, 32, 16, 32), (1, 13, 4, 64, 128, 128),
-          (1, 300, 2, 64, 128, 128)]
+          (1, 300, 2, 64, 128, 128), (1, 300, 2, 64, 128, 256)]
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SWEEP + RAGGED)
@@ -97,7 +97,8 @@ def test_ssd_matches_jax(b, s, h, p, n, chunk):
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 77, 3, 32, 16, 32),
-                                             (1, 160, 2, 64, 128, 128)])
+                                             (1, 160, 2, 64, 128, 128),
+                                             (1, 300, 2, 64, 128, 256)])
 def test_ssd_bf16_matches_ssd_chunked(b, s, h, p, n, chunk):
     x, dt, a, bm, cm = _inputs(b, s, h, p, n, seed=s)
     bf = lambda v: torch.from_numpy(v).bfloat16()  # noqa: E731
@@ -226,14 +227,64 @@ def test_cache_layout_matches_jax():
 
 
 def test_ssd_kernel_matches_plain_version_on_card():
+    """Both kernel paths: chunks whose B, C and x fit shared memory in
+    one pass, longer ones (chunk 256, as SSMCfg's default and Jamba, at
+    S = 300 and 600) in sub-tiles; fp32 within 1e-5 and bf16 y within
+    1e-2 x max|ref|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for b, s, h, p, n, chunk in ((8, 13, 64, 64, 128, 13),
-                                 (1, 300, 64, 64, 128, 128)):
-        args = [torch.from_numpy(a).cuda()
-                for a in _inputs(b, s, h, p, n, seed=s)]
-        got, got_state = ssd_scan(*args, chunk=chunk, return_state=True)
+    paths = set()
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for b, s, h, p, n, chunk in ((8, 13, 64, 64, 128, 13),
+                                     (1, 300, 64, 64, 128, 128),
+                                     (1, 300, 64, 64, 128, 256),
+                                     (1, 600, 64, 64, 128, 256)):
+            x, dt, a, bm, cm = (torch.from_numpy(v).cuda()
+                                for v in _inputs(b, s, h, p, n, seed=s))
+            args = (x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype))
+            got, got_state = ssd_scan(*args, chunk=chunk, return_state=True)
+            paths.add(ssd_scan.last_path)
+            ref, ref_state = ssd_reference(*args, chunk=chunk)
+            assert (got.float() - ref.float()).abs().max() <= \
+                rel * ref.float().abs().max()
+            assert (got_state - ref_state).abs().max() <= \
+                1e-5 * ref_state.abs().max()
+    assert paths == {"single_pass", "sub_tiled"}
+
+
+def test_ssd_scan_path_names_a_kernel_path():
+    """``path`` takes a name of PATHS or None; the CPU runs the plain
+    version whatever it names."""
+    from repro_torch.kernels.ssd_scan.ops import PATHS
+    args = [torch.from_numpy(v) for v in _inputs(1, 20, 2, 8, 4, seed=3)]
+    ref, ref_state = ssd_reference(*args, chunk=8)
+    for path in (None, *PATHS):
+        got, state = ssd_scan(*args, chunk=8, return_state=True, path=path)
+        assert torch.equal(got, ref) and torch.equal(state, ref_state)
+    with pytest.raises(ValueError, match="path must be one of"):
+        ssd_scan(*args, chunk=8, path="tiled")
+
+
+def test_ssd_kernel_paths_agree_when_both_fit_on_card():
+    """Each path forced at a chunk both can run (128 in bf16, 64 and 128
+    in fp32, Mamba2-1.3B's H, P, N): y within 1e-5 (fp32) or 1e-2 (bf16)
+    x max|ref| and the state within 1e-5 x max|ref|, as the chosen
+    path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.ssd_scan.ops import PATHS
+    for dtype, rel, chunk in ((torch.bfloat16, 1e-2, 128),
+                              (torch.float32, 1e-5, 64),
+                              (torch.float32, 1e-5, 128)):
+        x, dt, a, bm, cm = (torch.from_numpy(v).cuda()
+                            for v in _inputs(1, 300, 64, 64, 128, seed=chunk))
+        args = (x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype))
         ref, ref_state = ssd_reference(*args, chunk=chunk)
-        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
-        assert (got_state - ref_state).abs().max() <= \
-            1e-5 * ref_state.abs().max()
+        for path in PATHS:
+            got, state = ssd_scan(*args, chunk=chunk, return_state=True,
+                                  path=path)
+            assert ssd_scan.last_path == path
+            assert (got.float() - ref.float()).abs().max() <= \
+                rel * ref.float().abs().max()
+            assert (state - ref_state).abs().max() <= \
+                1e-5 * ref_state.abs().max()
